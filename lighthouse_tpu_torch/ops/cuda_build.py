@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels (nvcc → plain-C ``.so`` → ctypes).
+
+The kernels compile from the sources under ``lighthouse_tpu_torch/csrc``
+at their first use, into ``build/kernels/`` at the repository root (git
+ignores it), with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
+
+The file name carries a hash of the source, so an edited kernel never
+loads a stale build.  Nothing here runs at import time: this module is
+imported on machines with no ``nvcc`` and no GPU, where only the plain
+versions of the kernels run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# name → (loaded CDLL, .so path, seconds the build took, ptxas report)
+_LOADED: dict[str, tuple] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                       "built on this machine")
+
+
+def library_path(name: str) -> str:
+    """Where the build of ``csrc/<name>.cu`` lives for its current source."""
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build(name: str) -> tuple[str, float, str]:
+    """Compile ``csrc/<name>.cu`` if its build is missing.  Returns
+    ``(so path, build seconds, ptxas report)`` (0 s and "" when reused)."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return out, 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    took = time.perf_counter() - t0
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {name}.cu (rc {proc.returncode})"
+                           f":\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, took, proc.stdout + proc.stderr
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, binding each C entry
+    of ``signatures`` (entry → argtypes; every entry returns a CUDA error
+    code as ``int``)."""
+    got = _LOADED.get(name)
+    if got is not None:
+        return got[0]
+    path, took, report = build(name)
+    lib = ctypes.CDLL(path)
+    for entry, argtypes in signatures.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _LOADED[name] = (lib, path, took, report)
+    return lib
+
+
+def build_info(name: str) -> dict:
+    """Path, build seconds and ptxas report of a loaded library."""
+    _lib, path, took, report = _LOADED[name]
+    return {"path": path, "build_s": took, "ptxas": report}
