@@ -26,6 +26,21 @@ Phases, each of which fails the run with a non-zero exit:
 4. Where the time goes: the clean, warm (1%) and uncached roots once
    more under ``torch.profiler`` (device busy time and idle share, top
    device and host ops) and once under cProfile (top Python functions).
+5. The BLS kernels (``csrc/bls381.cu``) against their plain PyTorch
+   versions on the card, at the shared verify path's shapes: hash-to-G2
+   on 2 cells (512 u lanes), sigma on 2 chunks (the path's signature
+   columns, and random live/dead lanes with an all-dead chunk), Miller+
+   fold on one 256-lane cell with every lane live and with the path's 2
+   live lanes, finalize on a product that is 1 and on one that is not.
+   Outputs agree after canonical reduction (x mod p) and the verdict
+   exactly; 4 hash columns match the host ``hash_to_g2``.  Each kernel
+   is timed with CUDA events beside its plain version and its bound.
+6. ``verify_signature_sets`` of the port's default (``tpu``) backend on the
+   sync-committee shape (512 shared keys × 256 messages, built like
+   ``bench.py``): the valid batch verifies, a swapped signature and an
+   altered message fail.  The BLS launch counters are zeroed just before
+   and must be > 0 just after; the wall time, the stage split and the
+   device idle share are printed.
 
 The line before the last is one JSON object with each kernel's launches,
 error, time, plain-version time and bound; the last line is
@@ -48,6 +63,10 @@ import numpy as np
 
 SEED = 20
 LOG2_VALIDATORS = 20
+BLS_KEYS = 512               # sync committee
+BLS_MSGS = 256               # messages per batch
+BLS_TIMED_RUNS = 10
+VERIFY_RUNS = 5
 KERNEL_N = 1 << 20            # hash64 pairs / sub-tree leaves timed
 TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -96,28 +115,43 @@ def sass_instruction_counts(so_path: str) -> dict:
     return counts
 
 
-def phase_build(torch, mk, cuda_build) -> dict:
+def phase_build(torch, mk, pk, cuda_build) -> dict:
     card = smi("name,power.limit")
     print(f"card: {card}")
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}  python "
           f"{sys.version.split()[0]}")
     t0 = time.perf_counter()
+    built = cuda_build.build_all(["sha256_merkle", "bls381"])  # 2 nvcc at once
     mk.kernel_library()
-    info = cuda_build.build_info("sha256_merkle")
-    print(f"kernel build: {info['build_s']:.1f} s nvcc "
-          f"({time.perf_counter() - t0:.1f} s with load) -> {info['path']}")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
-    sass = sass_instruction_counts(info["path"])
+    pk.kernel_library()
+    print(f"kernel builds: {time.perf_counter() - t0:.1f} s wall, both "
+          f"nvcc started together")
+    sass = {}
+    for lib in ("sha256_merkle", "bls381"):
+        took, ptxas = built.get(lib, (0.0, ""))
+        path = cuda_build.build_info(lib)["path"]
+        print(f"  {lib}: {took:.1f} s nvcc -> {path}")
+        for line in ptxas.splitlines():
+            if any(k in line for k in ("registers", "spill", "stack",
+                                       "Compiling")):
+                print(f"    ptxas: {line.strip()}")
+        sass.update(sass_instruction_counts(path))
     print(f"SASS instructions (non-NOP): {json.dumps(sass)}")
     check("lh_hash64_kernel" in sass and sass["lh_hash64_kernel"] > 1000,
           f"cannot read the hash64 kernel's SASS: {sass}")
+    mul_fns = [k for k in sass if "fp_mul" in k and not k.startswith("lh_")]
+    instr_per_mont = (sass[mul_fns[0]] if mul_fns
+                      else sass.get("lh_fp_mul_kernel", 0))
+    check(instr_per_mont > 100,
+          f"cannot price a Montgomery product from SASS: {sass}")
+    print(f"SASS instructions per Montgomery product: {instr_per_mont} "
+          f"({mul_fns[0] if mul_fns else 'lh_fp_mul_kernel'})")
     clk_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"max SM clock {clk_mhz:.0f} MHz, {sms} SMs")
     return {"card": card, "instr_per_hash": sass["lh_hash64_kernel"],
+            "instr_per_mont": instr_per_mont,
             "clk_hz": clk_mhz * 1e6, "sms": sms}
 
 
@@ -529,6 +563,292 @@ def profile_roots(torch, hw: dict, cases) -> None:
             f"{name} x{calls} {t * 1e3:.2f} ms" for t, calls, name in top))
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the BLS kernels against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+def canonical_blocks(planes) -> np.ndarray:
+    """(32·k, M) int32 Montgomery blocks → (k, M) object array of each
+    element's value mod p (the comparison the lazy < 2N residues allow)."""
+    from lighthouse_tpu_torch.crypto.fields import P
+    arr = planes.cpu().numpy().astype(np.int64)
+    k, m = arr.shape[0] // 32, arr.shape[1]
+    limbs = arr.reshape(k, 32, m)[:, :26]
+    out = np.empty((k, m), dtype=object)
+    for b in range(k):
+        for j in range(m):
+            v = 0
+            for i in range(25, -1, -1):
+                v = (v << 16) | int(limbs[b, i, j])
+            out[b, j] = v % P
+    return out
+
+
+def canonical_err(got, want) -> int:
+    """Largest |a − b| over elements after canonical reduction (0 when the
+    kernel and the plain version agree)."""
+    check(tuple(got.shape) == tuple(want.shape),
+          f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    a, b = canonical_blocks(got), canonical_blocks(want)
+    return max(abs(int(x) - int(y)) for x, y in zip(a.flat, b.flat))
+
+
+def mont_bound_ms(hw: dict, products: int) -> float:
+    """Least time for ``products`` Montgomery products: their SASS
+    instructions over the card's INT32 issue rate."""
+    return products * hw["instr_per_mont"] / (
+        INT32_LANES_PER_SM * hw["sms"] * hw["clk_hz"]) * 1e3
+
+
+def build_bls_batch(bls, F, rng):
+    """The sync-committee batch of ``bench.py``: BLS_KEYS keys from a
+    seed, BLS_MSGS messages, each signed by the summed secret key."""
+    sks = [int(rng.integers(1, 2 ** 63)) * int(rng.integers(1, 2 ** 63))
+           % F.R for _ in range(BLS_KEYS)]
+    pks = [bls.SecretKey(k).public_key() for k in sks]
+    fsum = sum(sks) % F.R
+    msgs = [b"sync-comm-%03d" % i for i in range(BLS_MSGS)]
+    signer = bls.SecretKey(fsum)
+    return [bls.SignatureSet(signer.sign(m), list(pks), m) for m in msgs]
+
+
+def rand_planes(torch, rng, F, LF, k: int, m: int):
+    """(32·k, m) int32 blocks of random field elements below 2N."""
+    vals = rng.integers(0, 2 ** 63, (k, m, 7), dtype=np.uint64)
+    out = np.zeros((k, 32, m), np.int32)
+    for b in range(k):
+        for j in range(m):
+            v = 0
+            for w in vals[b, j]:
+                v = (v << 63) | int(w)
+            out[b, :26, j] = LF.int_to_limbs(v % (2 * F.P)).astype(np.int32)
+    return torch.from_numpy(out.reshape(32 * k, m)).cuda()
+
+
+def plain_products(PK, fn) -> int:
+    """Montgomery products the plain version runs for ``fn()`` — the work
+    these inputs need (dead lanes and repeated lanes are skipped)."""
+    PK.MONT_PRODUCTS[0] = 0
+    fn()
+    return PK.MONT_PRODUCTS[0]
+
+
+def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
+    from lighthouse_tpu_torch.crypto import fields as F
+    from lighthouse_tpu_torch.crypto import hash_to_curve as H2C
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import limb_field as LF
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.crypto import tpu_backend as TB
+
+    rng = np.random.default_rng(SEED + 1)
+    dev = torch.device("cuda")
+    S = PK.PREP_S
+    entries = [(s.signature.point, [k.point for k in s.signing_keys],
+                bytes(s.message)) for s in sets]
+    entries, _ok = TB._dedup_shared_keygroups(entries)
+    pk_pt = TB._shared_group_key(entries)
+    check(pk_pt is not None, "the sync-committee batch did not collapse")
+    n_chunks = (len(entries) + S - 1) // S
+    (_c, lo, hi, u_np, sig_np, sigmask, setlive) = \
+        TB._rlc_message_sig_columns(entries, n_chunks, rand_fn)
+
+    def dev32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
+    u, sig_cols = dev32(u_np), dev32(sig_np)
+    lo_d, hi_d = dev32(lo), dev32(hi)
+    live, smask = dev32(setlive), dev32(sigmask)
+    pk_col = dev32(TB.pk_columns(pk_pt))
+    errs, timing = {}, {}
+
+    # the field core alone: one Montgomery product per lane, edge words in
+    a, b = rand_planes(torch, rng, F, LF, 1, 4096), \
+        rand_planes(torch, rng, F, LF, 1, 4096)
+    for j, v in enumerate((0, F.P - 1, 2 * F.P - 1, 2 * F.P)):
+        a[:26, j] = torch.from_numpy(LF.int_to_limbs(v).astype(np.int32))
+    want = PK.mont_mul(a[:26].long(), b[:26].long())
+    check(torch.equal(PK.fp_mul_kernel(a, b)[:26].long(), want),
+          "fp_mul kernel != plain mont_mul (raw limbs)")
+
+    def record(name, kern, plain, products, shape, note=""):
+        k_ms = cuda_ms(torch, kern, BLS_TIMED_RUNS)
+        p_ms = cuda_ms(torch, plain, 1)
+        b_ms = mont_bound_ms(hw, products)
+        timing[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": "operations", "products": products}
+        print(f"{name}: {k_ms:.3f} ms kernel (median of {BLS_TIMED_RUNS}), "
+              f"{p_ms:.1f} ms plain, bound {b_ms:.4f} ms ({products} "
+              f"Montgomery products × {hw['instr_per_mont']} instr){note} "
+              f"-> {100 * b_ms / k_ms:.2f}% of bound, {shape} "
+              f"[{hw['card']}]")
+
+    # hash to G2: 2 cells, the path's 256 messages
+    h_k = HK.hash_g2_kernel_call(u)
+    h_p = HK.hash_g2_plain(u)
+    errs["hash_g2"] = canonical_err(h_k, h_p)
+    check(errs["hash_g2"] == 0, "hash_g2 kernel != plain")
+    cols = canonical_blocks(h_k)
+    for j in rng.choice(len(entries), 4, replace=False):
+        want = H2C.hash_to_g2(entries[j][2])
+        got = ((cols[0, j] * LF.RINV_INT % F.P, cols[1, j] * LF.RINV_INT
+                % F.P), (cols[2, j] * LF.RINV_INT % F.P,
+                         cols[3, j] * LF.RINV_INT % F.P))
+        check(got == want, f"hash_g2 column {j} != host hash_to_g2")
+    record("hash_g2", lambda: HK.hash_g2_kernel_call(u),
+           lambda: HK.hash_g2_plain(u),
+           plain_products(PK, lambda: HK.hash_g2_plain(u)),
+           f"u {tuple(u.shape)}")
+
+    # sigma: the path's signature columns; random live/dead + dead chunk
+    err = 0
+    rsig = rand_planes(torch, rng, F, LF, 4, 2 * S)
+    rmask = torch.from_numpy((rng.random((1, 2 * S)) < 0.6)
+                             .astype(np.int32)).to(dev)
+    rmask[0, S:] = 0
+    rlo = dev32(rng.integers(0, 2 ** 32, (1, 2 * S), dtype=np.uint64)
+                .astype(np.uint32))
+    rhi = dev32(rng.integers(0, 2 ** 32, (1, 2 * S), dtype=np.uint64)
+                .astype(np.uint32))
+    rlo[0, S + 64:] = 0
+    rhi[0, S + 64:] = 0
+    for args in ((sig_cols, smask, lo_d, hi_d), (h_k, live, lo_d, hi_d),
+                 (rsig, rmask, rlo, rhi)):
+        err = max(err, canonical_err(PK.sigma_kernel_call(*args),
+                                     PK.sigma_plain(*args)))
+    errs["sigma"] = err
+    check(err == 0, "sigma kernel != plain")
+    record("sigma", lambda: PK.sigma_kernel_call(sig_cols, smask, lo_d, hi_d),
+           lambda: PK.sigma_plain(sig_cols, smask, lo_d, hi_d),
+           plain_products(PK, lambda: PK.sigma_plain(sig_cols, smask, lo_d,
+                                                     hi_d)),
+           f"sig {tuple(sig_cols.shape)}, the path's columns")
+
+    # the path's Miller cell, then one with every lane live
+    h_col, h_id = PK.sigma_combine(PK.sigma_kernel_call(h_k, live, lo_d,
+                                                        hi_d))
+    s_col, s_id = PK.sigma_combine(PK.sigma_kernel_call(sig_cols, smask,
+                                                        lo_d, hi_d))
+    g2 = torch.zeros((128, 2 * S), dtype=torch.int32, device=dev)
+    g2[:, 0], g2[:, 1] = h_col, s_col
+    mask = torch.zeros((1, 2 * S), dtype=torch.int32, device=dev)
+    mask[0, 0] = (~h_id).to(torch.int32)
+    mask[0, 1] = (~s_id).to(torch.int32)
+    prod = PK.miller_fold_kernel_call(pk_col, g2, mask)
+    err = canonical_err(prod, PK.miller_fold_plain(pk_col, g2, mask))
+    rg1, rg2 = rand_planes(torch, rng, F, LF, 2, 2 * S), \
+        rand_planes(torch, rng, F, LF, 4, 2 * S)
+    ones = torch.ones((1, 2 * S), dtype=torch.int32, device=dev)
+    err = max(err, canonical_err(PK.miller_fold_kernel_call(rg1, rg2, ones),
+                                 PK.miller_fold_plain(rg1, rg2, ones)))
+    errs["miller_fold"] = err
+    check(err == 0, "miller_fold kernel != plain")
+    record("miller_fold", lambda: PK.miller_fold_kernel_call(pk_col, g2, mask),
+           lambda: PK.miller_fold_plain(pk_col, g2, mask),
+           plain_products(PK, lambda: PK.miller_fold_plain(pk_col, g2, mask)),
+           "one 256-lane cell, the path's 2 live lanes")
+    full_ms = cuda_ms(torch, lambda: PK.miller_fold_kernel_call(rg1, rg2, ones),
+                      BLS_TIMED_RUNS)
+    full_bound = mont_bound_ms(hw, plain_products(
+        PK, lambda: PK.miller_fold_plain(rg1, rg2, ones)))
+    print(f"miller_fold with all 256 lanes live: {full_ms:.3f} ms, bound "
+          f"{full_bound:.4f} ms -> {100 * full_bound / full_ms:.2f}% of "
+          f"bound [{hw['card']}]")
+
+    # finalize: the valid product (== 1) and a random block (!= 1)
+    ok_k, g_k = PK.finalize_kernel_call(prod, with_value=True)
+    ok_p, g_p = PK.finalize_plain(prod, with_value=True)
+    check(int(ok_k.item()) == 1 and int(ok_p.item()) == 1,
+          f"finalize of the valid product: kernel {int(ok_k.item())}, "
+          f"plain {int(ok_p.item())} (want 1)")
+    err = canonical_err(g_k, g_p)
+    rf = rand_planes(torch, rng, F, LF, 12, S)
+    ok_k, g_k = PK.finalize_kernel_call(rf, with_value=True)
+    ok_p, g_p = PK.finalize_plain(rf, with_value=True)
+    check(int(ok_k.item()) == 0 and int(ok_p.item()) == 0,
+          "finalize of a random block claims == 1")
+    errs["finalize"] = max(err, canonical_err(g_k, g_p))
+    check(errs["finalize"] == 0, "finalize kernel != plain")
+    record("finalize", lambda: PK.finalize_kernel_call(prod),
+           lambda: PK.finalize_plain(prod),
+           plain_products(PK, lambda: PK.finalize_plain(prod)),
+           "(384, 128)", note="; one serial chain (one thread), so the "
+           "rate bound is far below its latency")
+    print(f"BLS kernels vs plain on the card: equal after canonical "
+          f"reduction {errs}; finalize verdicts exact; 4 hash columns "
+          f"match the host hash_to_g2")
+    return {"errs": errs, "timing": timing}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: verify_signature_sets at 512 keys × 256 messages
+# ---------------------------------------------------------------------------
+
+def phase_bls_verify(torch, hw: dict, sets, rand_fn) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.crypto import tpu_backend as TB
+
+    backend = bls.get_backend()        # the port's default backend
+    check(backend.name == "tpu", f"default BLS backend is {backend.name}")
+    fbad = list(sets)
+    fbad[3] = bls.SignatureSet(sets[4].signature, sets[3].signing_keys,
+                               sets[3].message)
+    falt = list(sets)
+    falt[7] = bls.SignatureSet(sets[7].signature, sets[7].signing_keys,
+                               sets[7].message + b"!")
+    for d in (HK.LAUNCHES, PK.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    ok, ms = timed(torch, lambda: backend.verify_signature_sets(
+        sets, rand_fn=rand_fn))
+    check(ok is True, "the valid 512 × 256 batch did not verify")
+    check(backend.verify_signature_sets(fbad, rand_fn=rand_fn) is False,
+          "a batch with a swapped signature verified")
+    check(backend.verify_signature_sets(falt, rand_fn=rand_fn) is False,
+          "a batch with an altered message verified")
+    launches = {**HK.LAUNCHES, **PK.LAUNCHES}
+    print(f"verify main-path launches: {launches} [{hw['card']}]")
+    for name, count in launches.items():
+        check(count > 0, f"the verify path never launched the {name} kernel")
+    print(f"verify 512 keys × 256 messages: valid True ({ms:.1f} ms cold), "
+          f"swapped signature False, altered message False")
+
+    walls = [timed(torch, lambda: backend.verify_signature_sets(
+        sets, rand_fn=rand_fn))[1] for _ in range(VERIFY_RUNS)]
+    print(f"verify wall ms {[round(w, 1) for w in walls]} median "
+          f"{statistics.median(walls):.1f} [{hw['card']}]")
+    TB.STAGE_TIMINGS = True
+    try:
+        backend.verify_signature_sets(sets, rand_fn=rand_fn)
+        stages = dict(TB.LAST_FAST_AGG_TIMINGS)
+    finally:
+        TB.STAGE_TIMINGS = False
+    print("stage split (ms, each stage fenced): " + json.dumps(
+        {k: (round(v, 2) if isinstance(v, float) else v)
+         for k, v in stages.items()}) + f" [{hw['card']}]")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(torch, lambda: backend.verify_signature_sets(
+            sets, rand_fn=rand_fn))
+    events = prof.key_averages()
+    devt = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in events if e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(d for d, _c, _k in devt) / 1e3
+    print(f"profile verify: wall {wall:.1f} ms (under the profiler), device "
+          f"busy {busy:.3f} ms, idle share {1 - busy / wall:.4f} "
+          f"[{hw['card']}]")
+    print("  device: " + "; ".join(f"{k} x{c} {d / 1e3:.3f} ms"
+                                   for d, c, k in devt[:8]))
+    return {"launches": launches, "wall_ms": walls, "stages": stages,
+            "busy_ms": busy}
+
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -540,12 +860,31 @@ def main() -> None:
 
     device.set_default_device("cuda")
     t_start = time.perf_counter()
-    hw = phase_build(torch, mk, cuda_build)
+    from lighthouse_tpu_torch.crypto import bls, fields as F
+    from lighthouse_tpu_torch.crypto import pairing_kernel as pk
+    hw = phase_build(torch, mk, pk, cuda_build)
     kern = phase_kernels(torch, mk, hw)
     state = phase_state_root(torch, hw)
 
+    t0 = time.perf_counter()
+    brng = np.random.default_rng(SEED)
+    sets = build_bls_batch(bls, F, brng)
+    srng = np.random.default_rng(SEED + 2)
+
+    def rand_fn():
+        return int(srng.integers(1, 2 ** 64, dtype=np.uint64))
+
+    print(f"BLS set-up (host, pure Python): {BLS_KEYS} keys and "
+          f"{BLS_MSGS} signatures in {time.perf_counter() - t0:.1f} s")
+    bk = phase_bls_kernels(torch, hw, sets, rand_fn)
+    bv = phase_bls_verify(torch, hw, sets, rand_fn)
+
     replaces = {"hash64": "lighthouse_tpu/ops/merkle_kernel.py:192",
-                "subtree": "lighthouse_tpu/ops/merkle_kernel.py:159"}
+                "subtree": "lighthouse_tpu/ops/merkle_kernel.py:159",
+                "hash_g2": "lighthouse_tpu/crypto/htc_kernel.py:285",
+                "sigma": "lighthouse_tpu/crypto/pairing_kernel.py:1001",
+                "miller_fold": "lighthouse_tpu/crypto/pairing_kernel.py:938",
+                "finalize": "lighthouse_tpu/crypto/pairing_kernel.py:1165"}
     kernels = []
     for name in ("hash64", "subtree"):
         t = kern["timing"][name]
@@ -555,6 +894,17 @@ def main() -> None:
             "replaces": replaces[name],
             "launches": state["launches"][name],
             "max_abs_err": kern["errs"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    for name in ("hash_g2", "sigma", "miller_fold", "finalize"):
+        t = bk["timing"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "lighthouse_tpu_torch/csrc/bls381.cu",
+            "replaces": replaces[name],
+            "launches": bv["launches"][name],
+            "max_abs_err": bk["errs"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})

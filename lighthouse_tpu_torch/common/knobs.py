@@ -1,8 +1,9 @@
-"""The port's copy of the one environment knob its path reads.
+"""The port's copy of the environment knobs its paths read.
 
-Same name, default and truthiness convention as the JAX package's
-registry: true ∈ {1, true, yes, on}, false ∈ {0, false, no, off}, an
-empty value means unset (the default), anything else raises.
+Same names, defaults and conventions as the JAX package's registry:
+booleans are true ∈ {1, true, yes, on}, false ∈ {0, false, no, off};
+integers parse as int and are clamped to the knob's minimum; an empty
+value means unset (the default); anything else raises.
 """
 
 from __future__ import annotations
@@ -12,11 +13,14 @@ import os
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
 
-# name → (default, doc)
+# name → (default, doc[, minimum for int knobs])
 KNOBS = {
     "LIGHTHOUSE_TPU_DEVICE_STATE": (
         True, "Device-resident BeaconState: device memory is the hashing "
               "source of truth (0 = host incremental oracle)."),
+    "LIGHTHOUSE_TPU_SHARED_MIN": (
+        8, "Batch size from which the collapsed shared-key verify path "
+           "wins over the general path.", 1),
 }
 
 
@@ -37,3 +41,19 @@ def knob_bool(name: str) -> bool:
         return False
     raise KnobError(f"{name}={raw!r}: expected a boolean — one of "
                     f"{_TRUE + _FALSE} (or unset for the default)")
+
+
+def knob_int(name: str) -> int:
+    if name not in KNOBS:
+        raise KnobError(f"undeclared knob {name!r}")
+    default, _doc, minimum = KNOBS[name]
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return int(default)
+    try:
+        value = int(raw.strip())
+    except ValueError:
+        raise KnobError(f"{name}={raw!r}: expected an integer (default "
+                        f"{default}); unset the variable to use the "
+                        f"default") from None
+    return max(value, minimum)

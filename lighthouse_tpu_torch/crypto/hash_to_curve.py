@@ -1,0 +1,331 @@
+"""Hash-to-curve for BLS12-381 G2: BLS12381G2_XMD:SHA-256_SSWU_RO.
+
+The message-hashing half of BLS verification (the H(m) of e(pk, H(m))),
+as used by the reference via blst with DST
+``BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_``
+(Lighthouse ``crypto/bls/src/impls/blst.rs:14``).
+
+Pipeline per RFC 9380: expand_message_xmd(SHA-256) -> 2 Fq2 field elements
+-> simplified SWU onto the 3-isogenous curve E' (A' = 240u, B' = 1012(1+u),
+Z = -(2+u)) -> 3-isogeny to E -> point add -> cofactor clearing.
+
+Validation status: externally anchored.  ``tests/test_external_vectors.py``
+pins this pipeline to the published RFC 9380 known answers — Appendix
+J.10.1 (`BLS12381G2_XMD:SHA-256_SSWU_RO_` u-values and output points) and
+Appendix K.1 (`expand_message_xmd` SHA-256) — plus the eth2 interop
+keypairs; all match exactly.  Structural checks (iso_map homomorphism onto
+E(Fq2); h_eff an exact multiple of the true twist cofactor with r-coprime
+quotient) remain in the suite as fast invariants.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+from . import fields as F
+from .fields import P, R, BLS_X
+from . import curve as C
+
+DST_G2 = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
+
+# --- expand_message_xmd (SHA-256) ------------------------------------------
+
+_B_IN_BYTES = 32   # SHA-256 output
+_R_IN_BYTES = 64   # SHA-256 block
+
+
+def expand_message_xmd(msg: bytes, dst: bytes, len_in_bytes: int) -> bytes:
+    if len(dst) > 255:
+        dst = hashlib.sha256(b"H2C-OVERSIZE-DST-" + dst).digest()
+    ell = (len_in_bytes + _B_IN_BYTES - 1) // _B_IN_BYTES
+    if ell > 255 or len_in_bytes > 65535:
+        raise ValueError("requested output too long")
+    dst_prime = dst + bytes([len(dst)])
+    z_pad = b"\x00" * _R_IN_BYTES
+    l_i_b = len_in_bytes.to_bytes(2, "big")
+    b0 = hashlib.sha256(z_pad + msg + l_i_b + b"\x00" + dst_prime).digest()
+    b1 = hashlib.sha256(b0 + b"\x01" + dst_prime).digest()
+    out = [b1]
+    for i in range(2, ell + 1):
+        prev = out[-1]
+        mixed = bytes(a ^ b for a, b in zip(b0, prev))
+        out.append(hashlib.sha256(mixed + bytes([i]) + dst_prime).digest())
+    return b"".join(out)[:len_in_bytes]
+
+
+def hash_to_field_fq2(msg: bytes, count: int, dst: bytes = DST_G2):
+    """count Fq2 elements; L = 64 (ceil((381 + 128)/8))."""
+    L = 64
+    uniform = expand_message_xmd(msg, dst, count * 2 * L)
+    els = []
+    for i in range(count):
+        coeffs = []
+        for j in range(2):
+            off = L * (j + i * 2)
+            coeffs.append(int.from_bytes(uniform[off:off + L], "big") % P)
+        els.append((coeffs[0], coeffs[1]))
+    return els
+
+
+# --- simplified SWU on E': y^2 = x^3 + A'x + B' ----------------------------
+
+A_TWIST = (0, 240)          # 240u
+B_TWIST = (1012, 1012)      # 1012(1+u)
+Z_SSWU = (-2 % P, -1 % P)   # -(2+u)
+
+
+def _gx_twist(x):
+    return F.fq2_add(F.fq2_add(F.fq2_mul(F.fq2_sqr(x), x),
+                               F.fq2_mul(A_TWIST, x)), B_TWIST)
+
+
+def map_to_curve_sswu(t) -> tuple:
+    """RFC 9380 simplified SWU, non-constant-time (hashes public messages)."""
+    tv1 = F.fq2_mul(Z_SSWU, F.fq2_sqr(t))                 # Z t^2
+    tv2 = F.fq2_add(F.fq2_sqr(tv1), tv1)                  # Z^2 t^4 + Z t^2
+    neg_b_over_a = F.fq2_mul(F.fq2_neg(B_TWIST), F.fq2_inv(A_TWIST))
+    if F.fq2_is_zero(tv2):
+        x1 = F.fq2_mul(B_TWIST, F.fq2_inv(F.fq2_mul(Z_SSWU, A_TWIST)))
+    else:
+        x1 = F.fq2_mul(neg_b_over_a, F.fq2_add(F.FQ2_ONE, F.fq2_inv(tv2)))
+    gx1 = _gx_twist(x1)
+    y1 = F.fq2_sqrt(gx1)
+    if y1 is not None:
+        x, y = x1, y1
+    else:
+        x = F.fq2_mul(tv1, x1)
+        y = F.fq2_sqrt(_gx_twist(x))
+        assert y is not None, "SSWU: neither candidate square — impossible"
+    if F.fq2_sgn0(t) != F.fq2_sgn0(y):
+        y = F.fq2_neg(y)
+    return (x, y)
+
+
+# --- 3-isogeny E' -> E (RFC 9380 Appendix E.3 coefficients) -----------------
+# Each polynomial is listed low-degree-first in Fq2 pairs (c0, c1).
+
+_ISO3_X_NUM = (
+    (0x5C759507E8E333EBB5B7A9A47D7ED8532C52D39FD3A042A88B58423C50AE15D5C2638E343D9C71C6238AAAAAAAA97D6,
+     0x5C759507E8E333EBB5B7A9A47D7ED8532C52D39FD3A042A88B58423C50AE15D5C2638E343D9C71C6238AAAAAAAA97D6),
+    (0,
+     0x11560BF17BAA99BC32126FCED787C88F984F87ADF7AE0C7F9A208C6B4F20A4181472AAA9CB8D555526A9FFFFFFFFC71A),
+    (0x11560BF17BAA99BC32126FCED787C88F984F87ADF7AE0C7F9A208C6B4F20A4181472AAA9CB8D555526A9FFFFFFFFC71E,
+     0x8AB05F8BDD54CDE190937E76BC3E447CC27C3D6FBD7063FCD104635A790520C0A395554E5C6AAAA9354FFFFFFFFE38D),
+    (0x171D6541FA38CCFAED6DEA691F5FB614CB14B4E7F4E810AA22D6108F142B85757098E38D0F671C7188E2AAAAAAAA5ED1,
+     0),
+)
+_ISO3_X_DEN = (
+    (0,
+     0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAA63),
+    (0xC,
+     0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAA9F),
+    (1, 0),  # monic x^2
+)
+_ISO3_Y_NUM = (
+    (0x1530477C7AB4113B59A4C18B076D11930F7DA5D4A07F649BF54439D87D27E500FC8C25EBF8C92F6812CFC71C71C6D706,
+     0x1530477C7AB4113B59A4C18B076D11930F7DA5D4A07F649BF54439D87D27E500FC8C25EBF8C92F6812CFC71C71C6D706),
+    (0,
+     0x5C759507E8E333EBB5B7A9A47D7ED8532C52D39FD3A042A88B58423C50AE15D5C2638E343D9C71C6238AAAAAAAA97BE),
+    (0x11560BF17BAA99BC32126FCED787C88F984F87ADF7AE0C7F9A208C6B4F20A4181472AAA9CB8D555526A9FFFFFFFFC71C,
+     0x8AB05F8BDD54CDE190937E76BC3E447CC27C3D6FBD7063FCD104635A790520C0A395554E5C6AAAA9354FFFFFFFFE38F),
+    (0x124C9AD43B6CF79BFBF7043DE3811AD0761B0F37A1E26286B0E977C69AA274524E79097A56DC4BD9E1B371C71C718B10,
+     0),
+)
+_ISO3_Y_DEN = (
+    (0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFA8FB,
+     0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFA8FB),
+    (0,
+     0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFA9D3),
+    (0x12,
+     0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAA99),
+    (1, 0),  # monic x^3
+)
+
+
+def _poly_eval(coeffs, x):
+    acc = F.FQ2_ZERO
+    for c in reversed(coeffs):
+        acc = F.fq2_add(F.fq2_mul(acc, x), c)
+    return acc
+
+
+def iso_map(p) -> tuple | None:
+    """3-isogeny E'(Fq2) -> E(Fq2); None (infinity) if x_den vanishes."""
+    if p is None:
+        return None
+    x, y = p
+    x_den = _poly_eval(_ISO3_X_DEN, x)
+    y_den = _poly_eval(_ISO3_Y_DEN, x)
+    if F.fq2_is_zero(x_den) or F.fq2_is_zero(y_den):
+        return None
+    xo = F.fq2_mul(_poly_eval(_ISO3_X_NUM, x), F.fq2_inv(x_den))
+    yo = F.fq2_mul(y, F.fq2_mul(_poly_eval(_ISO3_Y_NUM, x), F.fq2_inv(y_den)))
+    return (xo, yo)
+
+
+# --- cofactor --------------------------------------------------------------
+
+def _compute_twist_cofactor() -> int:
+    """h2 = #E'(Fq2)/r from the BLS12 family trace — derived, then sanity-
+    checked in tests by killing random twist points."""
+    x = BLS_X
+    t = x + 1                      # trace of E/Fp
+    t2 = t * t - 2 * P             # trace of E/Fp2
+    # t2^2 - 4p^2 = -3f^2
+    f2, rem = divmod(4 * P * P - t2 * t2, 3)
+    assert rem == 0
+    f = _isqrt(f2)
+    assert f * f == f2
+    candidates = [
+        P * P + 1 - (t2 + 3 * f) // 2,
+        P * P + 1 - (t2 - 3 * f) // 2,
+        P * P + 1 + (t2 + 3 * f) // 2,
+        P * P + 1 + (t2 - 3 * f) // 2,
+    ]
+    for n in candidates:
+        if n % R == 0 and _order_kills_twist(n):
+            return n // R
+    raise AssertionError("no sextic-twist order divisible by r found")
+
+
+def _isqrt(n: int) -> int:
+    import math
+    return math.isqrt(n)
+
+
+def _order_kills_twist(n: int) -> bool:
+    pt = _arbitrary_twist_point(5)
+    return C.g2_mul_full(pt, n) is None
+
+
+def _arbitrary_twist_point(seed: int):
+    """Any point on E (the G2 curve equation) found by x-increment — NOT in
+    the r-subgroup generally."""
+    x = (seed, seed + 1)
+    while True:
+        y = F.fq2_sqrt(F.fq2_add(F.fq2_mul(F.fq2_sqr(x), x), (4, 4)))
+        if y is not None:
+            return (x, y)
+        x = (x[0] + 1, x[1])
+
+
+H2_TWIST_COFACTOR = _compute_twist_cofactor()
+
+# RFC 9380 effective cofactor for G2 (what blst multiplies by).  Validated
+# structurally in tests: it is an exact integer multiple of the derived
+# H2_TWIST_COFACTOR (quotient coprime to r) and sends arbitrary curve points
+# into the r-subgroup — properties a wrong constant fails with overwhelming
+# probability.
+H_EFF_G2 = 0xBC69F08F2EE75B3584C6A0EA91B352888E2A8E9145AD7689986FF031508FFE1329C2F178731DB956D82BF015D1212B02EC0EC69D7477C1AE954CBC06689F6A359894C0ADEBBF6B4E8020005AAA95551
+
+
+def clear_cofactor_slow(p):
+    """Direct h_eff multiplication — the unambiguous oracle."""
+    return C.g2_mul_full(p, H_EFF_G2)
+
+
+# --- psi endomorphism (untwist-Frobenius-twist) -----------------------------
+#
+# ψ = twist ∘ π ∘ untwist on E(Fq2):  ψ(x, y) = (c_x·x̄, c_y·ȳ) with
+# c_x = 1/ξ^((p−1)/3), c_y = 1/ξ^((p−1)/2) for the M-twist tower
+# (ξ = 1 + u).  ψ satisfies ψ² − [t]ψ + [p] = 0 (t = trace) and acts as
+# multiplication by x on G2 — both identities are asserted in tests, so a
+# wrong constant cannot survive.
+
+_PSI_CX = F.fq2_inv(F.fq2_pow(F.XI, (P - 1) // 3))
+_PSI_CY = F.fq2_inv(F.fq2_pow(F.XI, (P - 1) // 2))
+
+
+def psi(p):
+    if p is None:
+        return None
+    x, y = p
+    return (F.fq2_mul(_PSI_CX, F.fq2_conj(x)),
+            F.fq2_mul(_PSI_CY, F.fq2_conj(y)))
+
+
+def psi2(p):
+    return psi(psi(p))
+
+
+def clear_cofactor(p):
+    """Budroni–Pintore fast cofactor clearing (what blst implements):
+
+        h_eff·P = [x²−x−1]P + [x−1]ψ(P) + ψ²([2]P)
+                = ([x]t₁ − t₁ − P) + ψ(t₁ − P) + ψ²([2]P),  t₁ = [x]P
+
+    — two |x|-bit ladders (HW 6) instead of a 636-bit h_eff ladder.
+    Equality with :func:`clear_cofactor_slow` on random curve points is
+    asserted in tests (two morphisms agreeing on random points are equal
+    with overwhelming probability)."""
+    if p is None:
+        return None
+    t1 = C.g2_mul_full(p, -BLS_X)
+    t1 = C.g2_neg(t1)                                  # [x]P, x < 0
+    t2 = C.g2_neg(C.g2_mul_full(t1, -BLS_X))           # [x²]P
+    acc = C.g2_add(C.g2_add(t2, C.g2_neg(t1)), C.g2_neg(p))
+    acc = C.g2_add(acc, psi(C.g2_add(t1, C.g2_neg(p))))
+    return C.g2_add(acc, psi2(C.g2_add(p, p)))
+
+
+def g2_subgroup_check_fast(p) -> bool:
+    """P ∈ G2  ⟺  ψ(P) == [x]P (on-curve points) — the standard
+    endomorphism subgroup check; equivalence with the [r]P == O oracle is
+    asserted in tests over valid and invalid points."""
+    if p is None:
+        return True
+    if not C.g2_on_curve(p):
+        return False
+    xp = C.g2_neg(C.g2_mul_full(p, -BLS_X))
+    return psi(p) == xp
+
+
+# --- branchless sqrt machinery (shared with the device kernel) --------------
+#
+# q = p² ≡ 9 (mod 16).  For α ≠ 0 let c = α^((q+7)/16); then ω := c²/α =
+# α^((q−1)/8) is an 8th root of unity.  With e8 = sqrt(u) (a primitive 8th
+# root, e8⁴ = −1) the candidates c·e8^(−k) (k < 4) square to α exactly when
+# ω = e8^(2k) (the QR cases), and c·t_k with t_k = sqrt(Z/e8^(2k+1)) square
+# to Z·α when ω = e8^(2k+1) (the non-residue cases, where Z/ω is a square
+# because both are non-squares).  One 758-bit ladder + 8 cheap candidate
+# tests, no branching on field values — the exact scheme the Pallas
+# hash-to-curve kernel runs; validated here against :func:`..fields.fq2_sqrt`.
+
+E16_EXP = (P * P + 7) // 16
+
+E8 = F.fq2_sqrt((0, 1))
+assert E8 is not None and F.fq2_sqr(E8) == (0, 1)
+
+E8_INV_POWS = tuple(F.fq2_pow(F.fq2_inv(E8), k) for k in range(4))
+T_KS = tuple(
+    F.fq2_sqrt(F.fq2_mul(Z_SSWU, F.fq2_inv(F.fq2_pow(E8, 2 * k + 1))))
+    for k in range(4))
+assert all(t is not None for t in T_KS)
+
+
+def sqrt_or_z_times(alpha):
+    """(is_qr, root): root² = α if α is a QR else Z_SSWU·α.  Branchless
+    8-candidate scheme (docstring above); host oracle for the kernel."""
+    c = F.fq2_pow(alpha, E16_EXP)
+    a = (alpha[0] % P, alpha[1] % P)
+    for k in range(4):
+        cand = F.fq2_mul(c, E8_INV_POWS[k])
+        if F.fq2_sqr(cand) == a:
+            return True, cand
+    for k in range(4):
+        cand = F.fq2_mul(c, T_KS[k])
+        if F.fq2_sqr(cand) == F.fq2_mul(Z_SSWU, a):
+            return False, cand
+    raise AssertionError("unreachable: some 8th root of unity must match")
+
+
+# --- full hash-to-curve ----------------------------------------------------
+
+def hash_to_g2(msg: bytes, dst: bytes = DST_G2) -> tuple:
+    """RFC 9380 hash_to_curve (random-oracle variant) onto G2, in pure
+    Python: expand_message_xmd + hash_to_field, SSWU, the 3-isogeny, the
+    point add and Budroni–Pintore cofactor clearing."""
+    u0, u1 = hash_to_field_fq2(msg, 2, dst)
+    q0 = iso_map(map_to_curve_sswu(u0))
+    q1 = iso_map(map_to_curve_sswu(u1))
+    return clear_cofactor(C.g2_add(q0, q1))

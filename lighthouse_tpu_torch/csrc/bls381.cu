@@ -1,0 +1,177 @@
+// BLS12-381 kernels of the shared-key batch verify, for Hopper (sm_90a).
+//
+// Built by lighthouse_tpu_torch/ops/cuda_build.py into a plain-C shared
+// library and bound with ctypes (lighthouse_tpu_torch/crypto/
+// pairing_kernel.py, htc_kernel.py).  Each entry launches on the caller's
+// stream and returns cudaGetLastError().  Planes are the JAX package's
+// boundary layout: int32 tensors of 16-bit Montgomery limbs, one 32-row
+// block per Fq element, one lane per column.
+//
+// Kernel                   replaces (lighthouse_tpu/crypto/)
+// lh_hash_g2_kernel        htc_kernel.py _hash_g2_kernel (pallas_call :285)
+// lh_sigma_kernel          pairing_kernel.py _sigma_kernel (:1001)
+// lh_miller_fold_kernel    pairing_kernel.py _miller_fold_kernel (:938)
+// lh_finalize_kernel       pairing_kernel.py _finalize_easy_kernel +
+//                          _finalize_hard_kernel (:1165, :1173)
+//
+// What bounds them: integer multiply-adds.  Each is a long chain of
+// 13-word Montgomery products (fp_mul) per lane with a few kilobytes of
+// state, so the bound is the Montgomery products the work needs times
+// the instructions per product over the INT32 issue rate; the bytes moved
+// are tiny.  This first design is one thread per lane, the reference's
+// formulas in the reference's order, ladders rolled (#pragma unroll 1),
+// tower functions __noinline__ (the state spills to local memory, which
+// L1 caches).  The finalize tail is one serial chain (one thread).
+
+#include <cuda_runtime.h>
+
+#include "bls381_field.cuh"
+
+#define LANE_BLOCK 128
+
+// --- hash to G2: one 256-lane cell per block ---------------------------------
+// Thread t maps u lane t (u0 for t < 128, u1 above) through SSWU and the
+// isogeny; thread t < 128 then adds its partner's point, clears the
+// cofactor and writes the affine column t of the cell.
+__global__ void __launch_bounds__(2 * LANE_BLOCK)
+lh_hash_g2_kernel(const int32_t* __restrict__ u, int32_t* __restrict__ out,
+                  long long m2) {
+  __shared__ G2P partner[LANE_BLOCK];
+  const int tid = threadIdx.x;
+  const long long lane = (long long)blockIdx.x * 2 * LANE_BLOCK + tid;
+  G2P q = hash_lane(load_fp2(u, m2, lane, 0));
+  if (tid >= LANE_BLOCK) partner[tid - LANE_BLOCK] = q;
+  __syncthreads();
+  if (tid < LANE_BLOCK) {
+    Fp2 xa, ya;
+    hash_finish(q, partner[tid], xa, ya);
+    const long long m = m2 / 2;
+    const long long col = (long long)blockIdx.x * LANE_BLOCK + tid;
+    store_fp2(out, m, col, 0, xa);
+    store_fp2(out, m, col, 2, ya);
+  }
+}
+
+// --- sigma: one 128-lane chunk per block -------------------------------------
+// Masked point, 64-bit RLC ladder, then the butterfly: for w = 64 ... 1,
+// lane j adds lane (j + w) mod 128, exchanged through shared memory.
+__global__ void __launch_bounds__(LANE_BLOCK)
+lh_sigma_kernel(const int32_t* __restrict__ sig,
+                const int32_t* __restrict__ mask,
+                const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
+                int32_t* __restrict__ out, long long m) {
+  __shared__ G2P pts[LANE_BLOCK];
+  const int tid = threadIdx.x;
+  const long long lane = (long long)blockIdx.x * LANE_BLOCK + tid;
+  G2P p = g2_identity();
+  if (mask[lane] != 0)
+    p = {load_fp2(sig, m, lane, 0), load_fp2(sig, m, lane, 2), fp2_one()};
+  G2P acc = sigma_ladder(p, (uint32_t)lo[lane], (uint32_t)hi[lane]);
+  for (int w = LANE_BLOCK / 2; w >= 1; w >>= 1) {
+    pts[tid] = acc;
+    __syncthreads();
+    const G2P other = pts[(tid + w) & (LANE_BLOCK - 1)];
+    __syncthreads();
+    acc = g2_add(acc, other);
+  }
+  store_fp2(out, m, lane, 0, acc.X);
+  store_fp2(out, m, lane, 2, acc.Y);
+  store_fp2(out, m, lane, 4, acc.Z);
+}
+
+// --- Miller loop + masked fold: one 256-lane cell per block ------------------
+// Every thread runs the Miller loop of its pair; dead lanes become 1.
+// Threads 128..255 park their value in the output column their partner
+// will write, and thread j < 128 writes f_j * f_{j+128} over it.
+__global__ void __launch_bounds__(2 * LANE_BLOCK)
+lh_miller_fold_kernel(const int32_t* __restrict__ g1,
+                      const int32_t* __restrict__ g2,
+                      const int32_t* __restrict__ mask, int32_t* out,
+                      long long m) {
+  const int tid = threadIdx.x;
+  const long long lane = (long long)blockIdx.x * 2 * LANE_BLOCK + tid;
+  Fp12 f = miller_loop(load_fp(g1, m, lane, 0), load_fp(g1, m, lane, 1),
+                       load_fp2(g2, m, lane, 0), load_fp2(g2, m, lane, 2));
+  if (mask[lane] == 0) f = fp12_one();
+  const long long mo = m / 2;
+  const long long col = (long long)blockIdx.x * LANE_BLOCK + (tid % LANE_BLOCK);
+  if (tid >= LANE_BLOCK) store_fp12(out, mo, col, f);
+  __syncthreads();
+  if (tid < LANE_BLOCK) store_fp12(out, mo, col, fp12_mul(f, load_fp12(out, mo, col)));
+}
+
+// --- finalize: one block of 128 threads --------------------------------------
+// The 128 -> 1 fold in global scratch (step w: lane j < w times lane j + w,
+// which is what lane 0 of the reference's roll butterfly computes), then
+// thread 0 alone runs the easy and hard parts and the == 1 test.
+__global__ void __launch_bounds__(LANE_BLOCK)
+lh_finalize_kernel(const int32_t* __restrict__ f, Fp12* scratch, int32_t* ok,
+                   int32_t* g) {
+  const int tid = threadIdx.x;
+  scratch[tid] = load_fp12(f, LANE_BLOCK, tid);
+  __syncthreads();
+  for (int w = LANE_BLOCK / 2; w >= 1; w >>= 1) {
+    if (tid < w) scratch[tid] = fp12_mul(scratch[tid], scratch[tid + w]);
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const Fp12 r = final_exp_hard(final_exp_easy(scratch[0]));
+    ok[0] = fp12_is_one(r) ? 1 : 0;
+    store_fp12(g, 1, 0, r);
+  }
+}
+
+// --- probe: one Montgomery product per lane ----------------------------------
+__global__ void lh_fp_mul_kernel(const int32_t* __restrict__ a,
+                                 const int32_t* __restrict__ b,
+                                 int32_t* __restrict__ out, long long n) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  store_fp(out, n, lane, 0, fp_mul(load_fp(a, n, lane, 0), load_fp(b, n, lane, 0)));
+}
+
+// --- C entries ---------------------------------------------------------------
+
+extern "C" {
+
+int lh_bls_init(const void* host_consts, int nwords) {
+  if ((size_t)nwords * 4 != sizeof(BlsConsts)) return -2;
+  cudaError_t e = cudaMemcpyToSymbol(KC, host_consts, sizeof(BlsConsts));
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+int lh_hash_g2(const int32_t* u, int32_t* out, long long m2, void* stream) {
+  lh_hash_g2_kernel<<<(unsigned)(m2 / (2 * LANE_BLOCK)), 2 * LANE_BLOCK, 0,
+                      (cudaStream_t)stream>>>(u, out, m2);
+  return (int)cudaGetLastError();
+}
+
+int lh_sigma(const int32_t* sig, const int32_t* mask, const int32_t* lo,
+             const int32_t* hi, int32_t* out, long long m, void* stream) {
+  lh_sigma_kernel<<<(unsigned)(m / LANE_BLOCK), LANE_BLOCK, 0,
+                    (cudaStream_t)stream>>>(sig, mask, lo, hi, out, m);
+  return (int)cudaGetLastError();
+}
+
+int lh_miller_fold(const int32_t* g1, const int32_t* g2, const int32_t* mask,
+                   int32_t* out, long long m, void* stream) {
+  lh_miller_fold_kernel<<<(unsigned)(m / (2 * LANE_BLOCK)), 2 * LANE_BLOCK, 0,
+                          (cudaStream_t)stream>>>(g1, g2, mask, out, m);
+  return (int)cudaGetLastError();
+}
+
+int lh_finalize(const int32_t* f, int32_t* scratch, int32_t* ok, int32_t* g,
+                void* stream) {
+  lh_finalize_kernel<<<1, LANE_BLOCK, 0, (cudaStream_t)stream>>>(
+      f, reinterpret_cast<Fp12*>(scratch), ok, g);
+  return (int)cudaGetLastError();
+}
+
+int lh_fp_mul(const int32_t* a, const int32_t* b, int32_t* out, long long n,
+              void* stream) {
+  lh_fp_mul_kernel<<<(unsigned)((n + 127) / 128), 128, 0,
+                     (cudaStream_t)stream>>>(a, b, out, n);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -7,10 +7,13 @@ ignores it), with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
-The file name carries a hash of the source, so an edited kernel never
-loads a stale build.  Nothing here runs at import time: this module is
-imported on machines with no ``nvcc`` and no GPU, where only the plain
-versions of the kernels run.
+The file name carries a hash of the source and of the headers it
+includes, so an edited kernel never loads a stale build, and an edited
+header rebuilds only the sources that include it.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for
+all of them.  Nothing here runs at import time: this module is imported
+on machines with no ``nvcc`` and no GPU, where only the plain versions of
+the kernels run.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,32 +50,71 @@ def _nvcc() -> str:
                        "built on this machine")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list[str]:
+    """``<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another header (``#include "..."``)."""
+    todo, seen = [name + ".cu"], []
+    while todo:
+        src = todo.pop()
+        if src in seen:
+            continue
+        seen.append(src)
+        with open(os.path.join(CSRC, src)) as fh:
+            todo += _INCLUDE.findall(fh.read())
+    return seen
+
+
 def library_path(name: str) -> str:
-    """Where the build of ``csrc/<name>.cu`` lives for its current source."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where the build of ``csrc/<name>.cu`` lives for its current source
+    and the headers it includes."""
+    h = hashlib.sha256()
+    for src in _sources(name):
+        with open(os.path.join(CSRC, src), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_all(names) -> dict[str, tuple[float, str]]:
+    """Compile every ``csrc/<name>.cu`` whose build is missing, one nvcc
+    process per source, all started together.  Returns name → (build
+    seconds, ptxas report) for each source it compiled."""
+    running = []
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.tmp{os.getpid()}"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, name + ".cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((name, proc, time.perf_counter(), tmp, out))
+    built, failed = {}, []
+    for name, proc, t0, tmp, out in running:
+        stdout, stderr = proc.communicate()
+        took = time.perf_counter() - t0
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            failed.append(f"nvcc failed on {name}.cu (rc {proc.returncode})"
+                          f":\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, out)
+        built[name] = (took, stdout + stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
 
 
 def build(name: str) -> tuple[str, float, str]:
     """Compile ``csrc/<name>.cu`` if its build is missing.  Returns
     ``(so path, build seconds, ptxas report)`` (0 s and "" when reused)."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    took = time.perf_counter() - t0
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {name}.cu (rc {proc.returncode})"
-                           f":\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, took, proc.stdout + proc.stderr
+    took, report = build_all([name]).get(name, (0.0, ""))
+    return library_path(name), took, report
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

@@ -1,6 +1,6 @@
-"""The PyTorch port imports without JAX or the JAX package, and its device
-defaults to cuda: with no GPU a device call raises instead of running on
-the CPU.
+"""The PyTorch port imports without JAX or the JAX package (its BLS
+modules included), and its device defaults to cuda: with no GPU a device
+call raises instead of running on the CPU.
 
 Each check runs in a fresh interpreter with ``jax`` and ``lighthouse_tpu``
 blocked in ``sys.modules`` (the mirror of ``tests/test_imports.py``).
@@ -38,7 +38,7 @@ def test_every_port_module_imports_without_jax():
         "                      if v is not None}\n"
         "print(len(names))\n")
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    assert int(proc.stdout.strip()) >= 30
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -62,6 +62,7 @@ _DEVICE_CALLS = [
     "merkle_kernel.merkle_root_chunked(np.zeros((1024, 8), np.uint32), 10)",
     "merkle.merkleize(np.zeros((8192, 8), np.uint32), 13)",
     "device_tree.DeviceTree.from_host_leaves(np.zeros((8, 8), np.uint32))",
+    "tpu_backend.verify_shared_columns(*[np.zeros((64, 256), np.uint32)] * 7)",
 ]
 
 
@@ -74,6 +75,7 @@ def device_call_outcomes() -> dict:
         "from lighthouse_tpu_torch import device\n"
         "from lighthouse_tpu_torch.ops import device_tree, merkle, "
         "merkle_kernel\n"
+        "from lighthouse_tpu_torch.crypto import tpu_backend\n"
         "assert device.default_device().type == 'cuda'\n"
         f"for call in {_DEVICE_CALLS!r}:\n"
         "    try:\n"
