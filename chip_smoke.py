@@ -32,15 +32,42 @@ Phases, each of which fails the run with a non-zero exit:
    columns, and random live/dead lanes with an all-dead chunk), Miller+
    fold on one 256-lane cell with every lane live and with the path's 2
    live lanes, finalize on a product that is 1 and on one that is not.
-   Outputs agree after canonical reduction (x mod p) and the verdict
-   exactly; 4 hash columns match the host ``hash_to_g2``.  Each kernel
-   is timed with CUDA events beside its plain version and its bound.
+   Outputs agree limb for limb and the verdict exactly; 4 hash columns
+   match the host ``hash_to_g2``.  Each kernel is timed with CUDA events
+   beside its plain version and its bound.
 6. ``verify_signature_sets`` of the port's default (``tpu``) backend on the
    sync-committee shape (512 shared keys × 256 messages, built like
    ``bench.py``): the valid batch verifies, a swapped signature and an
    altered message fail.  The BLS launch counters are zeroed just before
    and must be > 0 just after; the wall time, the stage split and the
    device idle share are printed.
+7. The general path's kernels against their plain versions on the card,
+   limb for limb, at its shapes: prepare on BASELINE row 1's marshalled
+   batch (K = 16, C = 8) and again with masked key slots, a set whose
+   keys are P and −P and dead lanes; Miller at 256 and 1024 lanes;
+   product_chunks on 640 lanes padded with a ONE block (768), with and
+   without a mask; product at 512 lanes; finalize at 256 and 512 lanes;
+   and PR 2's kernels at this path's shapes: hash-to-G2 on 8 cells,
+   sigma on C = 8, Miller+fold on the padded 1280-lane cell (1025 live).
+   A few lanes of each match the host curve, Fq12 and pairing oracles.
+8. BASELINE row 1 on the general path (``bench.py:154-177``): 1024 sets
+   × 16 keys (secret key 0x10000 + 7v), 64 messages.  The valid batch
+   verifies from an empty pubkey table (cold; launch counts zeroed just
+   before and read just after: prepare 1, miller_fold 1, product_chunks
+   3, finalize 1); bench's key swap, a wrong signature, an altered
+   message and a set whose keys sum to the identity fail; then 5 warm
+   walls, the fenced stage split and the idle share under
+   ``torch.profiler``; then the same batch in two sub-batches of 512
+   (``LIGHTHOUSE_TPU_PIPELINE_SETS=512``), valid and key-swapped.
+9. A mainnet block's batch through the multi-K route: 128 attestation
+   aggregates of ~90% of 512-member committees, a sync aggregate of ~460
+   of 512 keys, the proposer's block and randao sets.  Two work items
+   (K 512 and 1), so the finalize takes 256 lanes; the valid batch
+   verifies, a swapped signature fails; ``verify`` and
+   ``aggregate_verify`` once each, valid and tampered.
+10. ``profile_stages(C=8)`` (the unfused Miller kernel) and the
+    prepare → miller(256) → product chain (the product kernel), each
+    with its launches counted and its time printed.
 
 The line before the last is one JSON object with each kernel's launches,
 error, time, plain-version time and bound; the last line is
@@ -67,6 +94,15 @@ BLS_KEYS = 512               # sync committee
 BLS_MSGS = 256               # messages per batch
 BLS_TIMED_RUNS = 10
 VERIFY_RUNS = 5
+GEN_SETS = 1024               # BASELINE row 1 (bench.py:129-131, 154-164)
+GEN_KEYS = 16
+GEN_MSGS = 64
+GEN_SK0, GEN_SK_STEP = 0x10000, 7   # validator v's secret key sk0 + 7v
+BLOCK_AGGREGATES = 128        # attestation aggregates in a mainnet block
+COMMITTEE = 512               # 2^20 validators / (32 slots × 64 committees)
+PARTICIPATION = 0.9
+SYNC_PARTICIPATION = 460 / 512
+SHARED_PATH_KERNELS = ("hash_g2", "sigma", "miller_fold", "finalize")
 KERNEL_N = 1 << 20            # hash64 pairs / sub-tree leaves timed
 TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -132,10 +168,12 @@ def phase_build(torch, mk, pk, cuda_build) -> dict:
         took, ptxas = built.get(lib, (0.0, ""))
         path = cuda_build.build_info(lib)["path"]
         print(f"  {lib}: {took:.1f} s nvcc -> {path}")
-        for line in ptxas.splitlines():
-            if any(k in line for k in ("registers", "spill", "stack",
-                                       "Compiling")):
-                print(f"    ptxas: {line.strip()}")
+        entry = "?"
+        for line in ptxas.splitlines():     # one line per kernel entry
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line:
+                print(f"    ptxas {entry}: {line.split(':', 1)[1].strip()}")
         sass.update(sass_instruction_counts(path))
     print(f"SASS instructions (non-NOP): {json.dumps(sass)}")
     check("lh_hash64_kernel" in sass and sass["lh_hash64_kernel"] > 1000,
@@ -584,15 +622,6 @@ def canonical_blocks(planes) -> np.ndarray:
     return out
 
 
-def canonical_err(got, want) -> int:
-    """Largest |a − b| over elements after canonical reduction (0 when the
-    kernel and the plain version agree)."""
-    check(tuple(got.shape) == tuple(want.shape),
-          f"shape {tuple(got.shape)} != {tuple(want.shape)}")
-    a, b = canonical_blocks(got), canonical_blocks(want)
-    return max(abs(int(x) - int(y)) for x, y in zip(a.flat, b.flat))
-
-
 def mont_bound_ms(hw: dict, products: int) -> float:
     """Least time for ``products`` Montgomery products: their SASS
     instructions over the card's INT32 issue rate."""
@@ -686,8 +715,8 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     # hash to G2: 2 cells, the path's 256 messages
     h_k = HK.hash_g2_kernel_call(u)
     h_p = HK.hash_g2_plain(u)
-    errs["hash_g2"] = canonical_err(h_k, h_p)
-    check(errs["hash_g2"] == 0, "hash_g2 kernel != plain")
+    errs["hash_g2"] = max_abs_err(torch, h_k, h_p)
+    check(errs["hash_g2"] == 0, "hash_g2 kernel != plain (raw limbs)")
     cols = canonical_blocks(h_k)
     for j in rng.choice(len(entries), 4, replace=False):
         want = H2C.hash_to_g2(entries[j][2])
@@ -714,10 +743,10 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     rhi[0, S + 64:] = 0
     for args in ((sig_cols, smask, lo_d, hi_d), (h_k, live, lo_d, hi_d),
                  (rsig, rmask, rlo, rhi)):
-        err = max(err, canonical_err(PK.sigma_kernel_call(*args),
-                                     PK.sigma_plain(*args)))
+        err = max(err, max_abs_err(torch, PK.sigma_kernel_call(*args),
+                                   PK.sigma_plain(*args)))
     errs["sigma"] = err
-    check(err == 0, "sigma kernel != plain")
+    check(err == 0, "sigma kernel != plain (raw limbs)")
     record("sigma", lambda: PK.sigma_kernel_call(sig_cols, smask, lo_d, hi_d),
            lambda: PK.sigma_plain(sig_cols, smask, lo_d, hi_d),
            plain_products(PK, lambda: PK.sigma_plain(sig_cols, smask, lo_d,
@@ -735,14 +764,15 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     mask[0, 0] = (~h_id).to(torch.int32)
     mask[0, 1] = (~s_id).to(torch.int32)
     prod = PK.miller_fold_kernel_call(pk_col, g2, mask)
-    err = canonical_err(prod, PK.miller_fold_plain(pk_col, g2, mask))
+    err = max_abs_err(torch, prod, PK.miller_fold_plain(pk_col, g2, mask))
     rg1, rg2 = rand_planes(torch, rng, F, LF, 2, 2 * S), \
         rand_planes(torch, rng, F, LF, 4, 2 * S)
     ones = torch.ones((1, 2 * S), dtype=torch.int32, device=dev)
-    err = max(err, canonical_err(PK.miller_fold_kernel_call(rg1, rg2, ones),
-                                 PK.miller_fold_plain(rg1, rg2, ones)))
+    err = max(err, max_abs_err(torch, PK.miller_fold_kernel_call(rg1, rg2,
+                                                                ones),
+                               PK.miller_fold_plain(rg1, rg2, ones)))
     errs["miller_fold"] = err
-    check(err == 0, "miller_fold kernel != plain")
+    check(err == 0, "miller_fold kernel != plain (raw limbs)")
     record("miller_fold", lambda: PK.miller_fold_kernel_call(pk_col, g2, mask),
            lambda: PK.miller_fold_plain(pk_col, g2, mask),
            plain_products(PK, lambda: PK.miller_fold_plain(pk_col, g2, mask)),
@@ -761,22 +791,22 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     check(int(ok_k.item()) == 1 and int(ok_p.item()) == 1,
           f"finalize of the valid product: kernel {int(ok_k.item())}, "
           f"plain {int(ok_p.item())} (want 1)")
-    err = canonical_err(g_k, g_p)
+    err = max_abs_err(torch, g_k, g_p)
     rf = rand_planes(torch, rng, F, LF, 12, S)
     ok_k, g_k = PK.finalize_kernel_call(rf, with_value=True)
     ok_p, g_p = PK.finalize_plain(rf, with_value=True)
     check(int(ok_k.item()) == 0 and int(ok_p.item()) == 0,
           "finalize of a random block claims == 1")
-    errs["finalize"] = max(err, canonical_err(g_k, g_p))
-    check(errs["finalize"] == 0, "finalize kernel != plain")
+    errs["finalize"] = max(err, max_abs_err(torch, g_k, g_p))
+    check(errs["finalize"] == 0, "finalize kernel != plain (raw limbs)")
     record("finalize", lambda: PK.finalize_kernel_call(prod),
            lambda: PK.finalize_plain(prod),
            plain_products(PK, lambda: PK.finalize_plain(prod)),
            "(384, 128)", note="; one serial chain (one thread), so the "
            "rate bound is far below its latency")
-    print(f"BLS kernels vs plain on the card: equal after canonical "
-          f"reduction {errs}; finalize verdicts exact; 4 hash columns "
-          f"match the host hash_to_g2")
+    print(f"BLS kernels vs plain on the card: raw limbs equal {errs}; "
+          f"finalize verdicts exact; 4 hash columns match the host "
+          f"hash_to_g2")
     return {"errs": errs, "timing": timing}
 
 
@@ -785,8 +815,6 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_bls_verify(torch, hw: dict, sets, rand_fn) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto import htc_kernel as HK
     from lighthouse_tpu_torch.crypto import pairing_kernel as PK
@@ -810,7 +838,8 @@ def phase_bls_verify(torch, hw: dict, sets, rand_fn) -> dict:
           "a batch with a swapped signature verified")
     check(backend.verify_signature_sets(falt, rand_fn=rand_fn) is False,
           "a batch with an altered message verified")
-    launches = {**HK.LAUNCHES, **PK.LAUNCHES}
+    launches = {k: v for k, v in {**HK.LAUNCHES, **PK.LAUNCHES}.items()
+                if k in SHARED_PATH_KERNELS}
     print(f"verify main-path launches: {launches} [{hw['card']}]")
     for name, count in launches.items():
         check(count > 0, f"the verify path never launched the {name} kernel")
@@ -821,32 +850,670 @@ def phase_bls_verify(torch, hw: dict, sets, rand_fn) -> dict:
         sets, rand_fn=rand_fn))[1] for _ in range(VERIFY_RUNS)]
     print(f"verify wall ms {[round(w, 1) for w in walls]} median "
           f"{statistics.median(walls):.1f} [{hw['card']}]")
-    TB.STAGE_TIMINGS = True
-    try:
-        backend.verify_signature_sets(sets, rand_fn=rand_fn)
-        stages = dict(TB.LAST_FAST_AGG_TIMINGS)
-    finally:
-        TB.STAGE_TIMINGS = False
+    stages = fenced_stages(TB, TB.LAST_FAST_AGG_TIMINGS, lambda:
+                           backend.verify_signature_sets(sets,
+                                                         rand_fn=rand_fn))
     print("stage split (ms, each stage fenced): " + json.dumps(
         {k: (round(v, 2) if isinstance(v, float) else v)
          for k, v in stages.items()}) + f" [{hw['card']}]")
+    prof = profile_call(torch, hw, "verify", lambda:
+                        backend.verify_signature_sets(sets, rand_fn=rand_fn))
+    return {"launches": launches, "wall_ms": walls, "stages": stages,
+            "busy_ms": prof["busy_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# Set-up of the general path's batches (host, pure Python)
+# ---------------------------------------------------------------------------
+
+def derive_g1_keys(F, C, sk0: int, step: int, n: int) -> list:
+    """Affine [sk0 + step·i]·G for i < n: Jacobian mixed additions of
+    [step]·G, then one batch inversion for all the Z coordinates."""
+    p = F.P
+    X, Y = C.g1_mul(C.G1_GEN, sk0)
+    qx, qy = C.g1_mul(C.G1_GEN, step)
+    Z = 1
+    jac = [(X, Y, Z)]
+    for _ in range(n - 1):
+        zz = Z * Z % p
+        h = (qx * zz - X) % p
+        hh = h * h % p
+        i4 = 4 * hh % p
+        j = h * i4 % p
+        r = 2 * (qy * Z % p * zz - Y) % p
+        v = X * i4 % p
+        X3 = (r * r - j - 2 * v) % p
+        Y = (r * (v - X3) - 2 * Y * j) % p
+        Z = ((Z + h) * (Z + h) - zz - hh) % p
+        X = X3
+        jac.append((X, Y, Z))
+    prefix, acc = [], 1
+    for _x, _y, z in jac:
+        acc = acc * z % p
+        prefix.append(acc)
+    inv = pow(acc, p - 2, p)
+    out = [None] * n
+    for i in range(n - 1, -1, -1):
+        zi = inv * (prefix[i - 1] if i else 1) % p
+        inv = inv * jac[i][2] % p
+        zi2 = zi * zi % p
+        out[i] = (jac[i][0] * zi2 % p, jac[i][1] * zi2 % p * zi % p)
+    return out
+
+
+def build_general_batch(bls, C, H2C, F, keys):
+    """BASELINE row 1 as ``bench.py:154-164`` builds it: set i signs
+    ``att-data-%03d`` % (i mod 64) under keys 16i … 16i+15 (secret key
+    0x10000 + 7k), with the summed secret key A + B·i.  For one message
+    the sets are r + 64t, so each signature is the previous one plus
+    64·B·H(m): two scalar multiplications per message."""
+    msgs = [b"att-data-%03d" % i for i in range(GEN_MSGS)]
+    a = GEN_KEYS * GEN_SK0 + GEN_SK_STEP * GEN_KEYS * (GEN_KEYS - 1) // 2
+    b = GEN_SK_STEP * GEN_KEYS * GEN_KEYS
+    sigs = [None] * GEN_SETS
+    for r in range(GEN_MSGS):
+        h = H2C.hash_to_g2(msgs[r])
+        pt = C.g2_mul(h, (a + b * r) % F.R)
+        step = C.g2_mul(h, GEN_MSGS * b % F.R)
+        for i in range(r, GEN_SETS, GEN_MSGS):
+            sigs[i] = pt
+            pt = C.g2_add(pt, step)
+    pks = [bls.PublicKey(k) for k in keys[:GEN_SETS * GEN_KEYS]]
+    sets = [bls.SignatureSet(bls.Signature(sigs[i]),
+                             pks[i * GEN_KEYS:(i + 1) * GEN_KEYS],
+                             msgs[i % GEN_MSGS]) for i in range(GEN_SETS)]
+    sk17 = sum(GEN_SK0 + GEN_SK_STEP * (17 * GEN_KEYS + j)
+               for j in range(GEN_KEYS)) % F.R
+    check(bls.SecretKey(sk17).sign(msgs[17 % GEN_MSGS]).point
+          == sets[17].signature.point, "set 17's signature != bench's")
+    return sets
+
+
+def build_block_batch(bls, C, H2C, F, keys, rng):
+    """A mainnet block's signature batch at 2^20 validators: 128
+    attestation aggregates over disjoint 512-member committees with about
+    90% participation, one sync aggregate of about 460 of 512 members,
+    and the proposer's block and randao sets (one key each).  Validator v
+    has secret key 0x10000 + 7v; the committees take the validators after
+    BASELINE row 1's 2^14."""
+    base = GEN_SETS * GEN_KEYS
+    sk = [GEN_SK0 + GEN_SK_STEP * v for v in range(len(keys))]
+    pks = [bls.PublicKey(k) for k in keys]
+    sets = []
+
+    def signed(members, msg):
+        s = sum(sk[v] for v in members) % F.R
+        return bls.SignatureSet(bls.Signature(C.g2_mul(H2C.hash_to_g2(msg), s)),
+                                [pks[v] for v in members], msg)
+
+    for a in range(BLOCK_AGGREGATES):
+        committee = base + a * COMMITTEE + np.arange(COMMITTEE)
+        members = committee[rng.random(COMMITTEE) < PARTICIPATION]
+        sets.append(signed(members.tolist(), b"block-att-data-%03d" % a))
+    pool = base + np.arange(BLOCK_AGGREGATES * COMMITTEE)
+    sync = rng.choice(pool, COMMITTEE, replace=False)
+    sync = sync[rng.random(COMMITTEE) < SYNC_PARTICIPATION]
+    sets.append(signed(sync.tolist(), b"sync-committee-block-root"))
+    proposer = int(pool[7])
+    sets.append(signed([proposer], b"beacon-block-root"))
+    sets.append(signed([proposer], b"randao-reveal-epoch"))
+    return sets, pks, sk
+
+
+def lane_ints(planes, lane: int) -> list:
+    """The Fq blocks of one lane as canonical integers (out of the
+    Montgomery domain)."""
+    from lighthouse_tpu_torch.crypto import limb_field as LF
+    from lighthouse_tpu_torch.crypto.fields import P
+    return [int(v) * LF.RINV_INT % P
+            for v in canonical_blocks(planes[:, lane:lane + 1])[:, 0]]
+
+
+def lane_fq12(planes, lane: int):
+    c = lane_ints(planes, lane)
+    return tuple(tuple((c[(i * 3 + j) * 2], c[(i * 3 + j) * 2 + 1])
+                       for j in range(3)) for i in range(2))
+
+
+def device_of_port():
+    from lighthouse_tpu_torch import device
+    return device.get_device()
+
+
+def host_syncs(torch, call) -> list:
+    """The synchronizing CUDA operations the port makes during ``call()``
+    (PyTorch's sync debug mode), each as the innermost port frames that
+    made it.  A warning raised with no port frame on the stack comes from
+    switching the debug mode itself (seen once per process on the card)
+    and is not counted."""
+    import traceback
+    import warnings
+    where = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()
+                      if "lighthouse_tpu_torch" in f.filename]
+            if frames:
+                where.append(" <- ".join(
+                    f"{os.path.basename(f.filename)}:{f.lineno}({f.name})"
+                    for f in reversed(frames[-3:])))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return where
+
+
+def fenced_stages(TB, stats: dict, call) -> dict:
+    """One verify with STAGE_TIMINGS on: each stage fenced by a device
+    sync and timed into ``stats``; returns a copy of it."""
+    TB.STAGE_TIMINGS = True
+    try:
+        call()
+        return dict(stats)
+    finally:
+        TB.STAGE_TIMINGS = False
+
+
+def zero_launches(*dicts) -> None:
+    for d in dicts:
+        for k in d:
+            d[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the general path's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
+    from lighthouse_tpu_torch.crypto import curve as C
+    from lighthouse_tpu_torch.crypto import fields as F
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing as PAIR
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.crypto import tpu_backend as TB
+
+    dev = device_of_port()
+    rng = np.random.default_rng(SEED + 3)
+    S, K = PK.PREP_S, GEN_KEYS
+    entries = [(s.signature.point, [k.point for k in s.signing_keys],
+                bytes(s.message)) for s in sets]
+    (idx, kmask, lo, hi, u, sig, sigmask, setlive,
+     k_bucket) = TB._marshal_group(entries, rand_fn)
+    check(k_bucket == K, f"K bucket {k_bucket} != {K}")
+
+    def dev32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
+    table = TB._PK_TABLE.device()
+    pk = table.index_select(1, dev32(idx))
+    kmask_d, lo_d, hi_d = dev32(kmask), dev32(lo), dev32(hi)
+    errs, timing = {}, {}
+
+    def record(name, kern, plain, products, nbytes, shape):
+        k_ms = cuda_ms(torch, kern, BLS_TIMED_RUNS)
+        p_ms = cuda_ms(torch, plain, 1)
+        ops_ms = mont_bound_ms(hw, products)
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms = max(ops_ms, mem_ms)
+        by = "operations" if ops_ms >= mem_ms else "bytes"
+        timing[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": by, "products": products,
+                        "bytes": nbytes}
+        print(f"{name}: {k_ms:.3f} ms kernel (median of {BLS_TIMED_RUNS}), "
+              f"{p_ms:.1f} ms plain, bound {b_ms:.4f} ms ({by}; {products} "
+              f"Montgomery products, {nbytes} B) -> "
+              f"{100 * b_ms / k_ms:.2f}% of bound, {shape} [{hw['card']}]")
+
+    def compare_once(name, kern, plain, ins, shape) -> int:
+        """Raw limbs of one kernel call against one plain call on the
+        same inputs (timed with CUDA events, its Montgomery products
+        counted), then the kernel's median of BLS_TIMED_RUNS."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        PK.MONT_PRODUCTS[0] = 0
+        a.record()
+        want = plain(*ins)
+        b.record()
+        b.synchronize()
+        p_ms, products = a.elapsed_time(b), PK.MONT_PRODUCTS[0]
+        err = max_abs_err(torch, kern(*ins), want)
+        check(err == 0, f"{name} kernel != plain at the general path's "
+                        f"shape {shape} (raw limbs)")
+        k_ms = cuda_ms(torch, lambda: kern(*ins), BLS_TIMED_RUNS)
+        nbytes = 4 * (sum(x.numel() for x in ins) + want.numel())
+        ops_ms = mont_bound_ms(hw, products)
+        b_ms = max(ops_ms, nbytes / HBM_BYTES_PER_S * 1e3)
+        print(f"{name} at the general path's shape: raw max abs err {err}; "
+              f"{k_ms:.3f} ms kernel (median of {BLS_TIMED_RUNS}), "
+              f"{p_ms:.1f} ms plain (one run), bound {b_ms:.4f} ms "
+              f"({products} Montgomery products, {nbytes} B) -> "
+              f"{100 * b_ms / k_ms:.2f}% of bound, {shape} [{hw['card']}]")
+        return err
+
+    # prepare at the path's shape, then with edge lanes: masked key slots,
+    # a set whose keys are P and −P, dead lanes (one with a scalar)
+    def col(set_i, k):
+        return (set_i // S) * K * S + k * S + set_i % S
+
+    pk_e, km_e = pk.clone(), kmask.copy()
+    lo_e, hi_e = lo.copy(), hi.copy()
+    km_e[0, [col(5, k) for k in range(8, K)]] = 0
+    p77 = entries[77][1][0]
+    for k, pt in ((0, p77), (1, C.g1_neg(p77))):
+        pk_e[:, col(77, k)] = dev32(np.frombuffer(TB._g1_aff_col(pt),
+                                                  np.uint32).copy())
+    km_e[0, [col(77, k) for k in range(2, K)]] = 0
+    dead = list(range(GEN_SETS - 24, GEN_SETS))
+    keyless = GEN_SETS - 25                # no live key, a nonzero scalar
+    km_e[0, [col(s_, k) for s_ in dead + [keyless] for k in range(K)]] = 0
+    lo_e[0, dead], hi_e[0, dead] = 0, 0
+    edge = (pk_e, dev32(km_e), dev32(lo_e), dev32(hi_e))
+    err = 0
+    for args in ((pk, kmask_d, lo_d, hi_d), edge):
+        g_k, f_k = PK.prepare_kernel_call(*args, K)
+        g_p, f_p = PK.prepare_plain(*args, K)
+        err = max(err, max_abs_err(torch, g_k, g_p),
+                  max_abs_err(torch, f_k, f_p))
+    errs["prepare"] = err
+    check(err == 0, "prepare kernel != plain (raw limbs)")
+    g_e, f_e = PK.prepare_kernel_call(*edge, K)
+
+    def scalar(lane):
+        return int(lo_e[0, lane]) | (int(hi_e[0, lane]) << 32)
+
+    for lane, nkeys in ((0, K), (5, 8)):
+        agg = None
+        for p in entries[lane][1][:nkeys]:
+            agg = C.g1_add(agg, p)
+        check(tuple(lane_ints(g_e, lane)) == C.g1_mul(agg, scalar(lane)),
+              f"prepare lane {lane} != c·Σ keys on the host")
+        check(int(f_e[0, lane]) == 0, f"prepare flagged live lane {lane}")
+    for lane in (77, keyless, dead[0], dead[-1]):
+        check(int(f_e[0, lane]) == 1 and lane_ints(g_e, lane) == [0, 0],
+              f"prepare lane {lane}: want flag 1 and (0, 0)")
+    g1_aff, _flags = PK.prepare_kernel_call(pk, kmask_d, lo_d, hi_d, K)
+    record("prepare",
+           lambda: PK.prepare_kernel_call(pk, kmask_d, lo_d, hi_d, K),
+           lambda: PK.prepare_plain(pk, kmask_d, lo_d, hi_d, K),
+           plain_products(PK, lambda: PK.prepare_plain(pk, kmask_d, lo_d,
+                                                       hi_d, K)),
+           4 * (64 * pk.shape[1] + pk.shape[1] + 2 * GEN_SETS
+                + 65 * GEN_SETS), f"C=8, K={K}, pk {tuple(pk.shape)}")
+
+    # PR 2's kernels at this path's shapes: hash-to-G2 on 8 cells, sigma
+    # on C = 8, Miller+fold on the padded (C+1)·128 → 1280-lane cell
+    u_d, sig_d = dev32(u), dev32(sig)
+    smask_d, live_d = dev32(sigmask), dev32(setlive)
+    h_cols = HK.hash_g2_kernel_call(u_d)
+    cell = TB.miller_cell(g1_aff, h_cols, *PK.sigma_combine(
+        PK.sigma_kernel_call(sig_d, smask_d, lo_d, hi_d)), smask_d, live_d)
+    n_live, width = int(cell[2].sum()), cell[0].shape[1]
+    check(width == -(-(GEN_SETS + S) // (2 * S)) * 2 * S
+          and n_live == GEN_SETS + 1,
+          f"Miller cell of {width} lanes with {n_live} live")
+    for name, kern, plain, ins, shape in (
+            ("hash_g2", HK.hash_g2_kernel_call, HK.hash_g2_plain, (u_d,),
+             f"u {tuple(u_d.shape)}"),
+            ("sigma", PK.sigma_kernel_call, PK.sigma_plain,
+             (sig_d, smask_d, lo_d, hi_d),
+             f"sig {tuple(sig_d.shape)}, C={sig_d.shape[1] // S}"),
+            ("miller_fold", PK.miller_fold_kernel_call, PK.miller_fold_plain,
+             cell, f"{cell[0].shape[1]} lanes, {n_live} live")):
+        errs[name] = compare_once(name, kern, plain, ins, shape)
+
+    # miller at 256 and 1024 lanes on the path's points (c·aggpk, H(m))
+    err = 0
+    for m in (256, GEN_SETS):
+        g1m, g2m = g1_aff[:, :m].contiguous(), h_cols[:, :m].contiguous()
+        err = max(err, max_abs_err(torch, PK.miller_kernel_call(g1m, g2m),
+                                   PK.miller_plain(g1m, g2m)))
+    errs["miller"] = err
+    check(err == 0, "miller kernel != plain (raw limbs)")
+    f = PK.miller_kernel_call(g1_aff, h_cols)
+    for lane in (3,):
+        P1 = tuple(lane_ints(g1_aff, lane))
+        x0, x1, y0, y1 = lane_ints(h_cols, lane)
+        fe3 = PAIR.final_exponentiation_cubed
+        check(fe3(lane_fq12(f, lane))
+              == fe3(PAIR.miller_loop(P1, ((x0, x1), (y0, y1)))),
+              f"miller lane {lane} != the host pairing")
+    record("miller", lambda: PK.miller_kernel_call(g1_aff, h_cols),
+           lambda: PK.miller_plain(g1_aff, h_cols),
+           plain_products(PK, lambda: PK.miller_plain(g1_aff, h_cols)),
+           4 * (64 + 128 + 384) * GEN_SETS, f"{GEN_SETS} lanes")
+
+    # product_chunks: 5 blocks padded with the ONE block, masked or not
+    one = torch.from_numpy(TB._ONE_BLOCK.view(np.int32)).to(dev)
+    f768 = torch.cat([f[:, :640], one], 1)
+    ones = torch.ones((1, 768), dtype=torch.int32, device=dev)
+    rmask = dev32((rng.random((1, 768)) < 0.7).astype(np.int32))
+    err = 0
+    for mk in (ones, rmask):
+        err = max(err, max_abs_err(
+            torch, PK.product_chunks_kernel_call(f768, mk),
+            PK.product_chunks_plain(f768, mk)))
+    errs["product_chunks"] = err
+    check(err == 0, "product_chunks kernel != plain (raw limbs)")
+    pc = PK.product_chunks_kernel_call(f768, ones)
+    for lane in (0, 2 * 128 + 9):        # chunk 2: lanes 521 and 649
+        c, j = divmod(lane, 128)
+        check(lane_fq12(pc, lane) == F.fq12_mul(
+            lane_fq12(f768, 256 * c + j), lane_fq12(f768, 256 * c + 128 + j)),
+            f"product_chunks lane {lane} != the host Fq12 product")
+    record("product_chunks",
+           lambda: PK.product_chunks_kernel_call(f768, ones),
+           lambda: PK.product_chunks_plain(f768, ones),
+           plain_products(PK, lambda: PK.product_chunks_plain(f768, ones)),
+           4 * (384 * 768 + 768 + 384 * 384), "768 -> 384 lanes")
+
+    # product at 512 lanes with a mask
+    f512 = f[:, :512].contiguous()
+    m512 = dev32((rng.random((1, 512)) < 0.8).astype(np.int32))
+    pr = PK.product_kernel_call(f512, m512)
+    errs["product"] = max_abs_err(torch, pr, PK.product_plain(f512, m512))
+    check(errs["product"] == 0, "product kernel != plain (raw limbs)")
+    want = F.FQ12_ONE
+    for r in range(4):
+        if int(m512[0, 128 * r + 7]):
+            want = F.fq12_mul(want, lane_fq12(f512, 128 * r + 7))
+    check(lane_fq12(pr, 7) == want, "product lane 7 != the host product")
+    record("product", lambda: PK.product_kernel_call(f512, m512),
+           lambda: PK.product_plain(f512, m512),
+           plain_products(PK, lambda: PK.product_plain(f512, m512)),
+           4 * (384 * 512 * 2 + 512), "512 lanes")
+
+    # finalize at 256 and 512 lanes: a product of 1 (the path's valid
+    # product beside ONE blocks) and one that is not 1
+    prod_valid, bad_flag = TB.fused_pipeline_body(
+        table, dev32(idx), kmask_d, lo_d, hi_d, dev32(u), dev32(sig),
+        dev32(sigmask), dev32(setlive), K=K)
+    check(not bool(bad_flag), "the valid batch flagged an identity key sum")
+    err = 0
+    for lanes in (256, 512):
+        for fin, want_ok in (
+                (torch.cat([prod_valid] + [one] * (lanes // 128 - 1), 1), 1),
+                (f[:, :lanes].contiguous(), 0)):
+            ok_k, g_k = PK.finalize_kernel_call(fin, with_value=True)
+            ok_p, g_p = PK.finalize_plain(fin, with_value=True)
+            check(int(ok_k.item()) == want_ok == int(ok_p.item()),
+                  f"finalize at {lanes} lanes: kernel {int(ok_k.item())}, "
+                  f"plain {int(ok_p.item())}, want {want_ok}")
+            err = max(err, max_abs_err(torch, g_k, g_p))
+        f_ms = cuda_ms(torch, lambda: PK.finalize_kernel_call(fin),
+                       BLS_TIMED_RUNS)
+        print(f"finalize at {lanes} lanes: {f_ms:.3f} ms (median of "
+              f"{BLS_TIMED_RUNS}) [{hw['card']}]")
+    check(err == 0, "widened finalize kernel != plain (raw limbs)")
+    errs["finalize_wide"] = err
+    print(f"general-path kernels vs plain on the card: raw limbs equal "
+          f"{errs}; host checks pass (prepare c·Σ keys, the P + (−P) and "
+          f"dead lanes, a Miller lane, product_chunks and product lanes)")
+    return {"errs": errs, "timing": timing}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: BASELINE row 1 on the general path
+# ---------------------------------------------------------------------------
+
+def profile_call(torch, hw: dict, label: str, fn) -> dict:
+    """One call under torch.profiler: wall, device busy time, idle share,
+    the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(torch, lambda: backend.verify_signature_sets(
-            sets, rand_fn=rand_fn))
-    events = prof.key_averages()
+        _, wall = timed(torch, fn)
     devt = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in events if e.self_device_time_total > 0),
-                  reverse=True)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
     busy = sum(d for d, _c, _k in devt) / 1e3
-    print(f"profile verify: wall {wall:.1f} ms (under the profiler), device "
-          f"busy {busy:.3f} ms, idle share {1 - busy / wall:.4f} "
+    print(f"profile {label}: wall {wall:.1f} ms (under the profiler), "
+          f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f} "
           f"[{hw['card']}]")
     print("  device: " + "; ".join(f"{k} x{c} {d / 1e3:.3f} ms"
                                    for d, c, k in devt[:8]))
-    return {"launches": launches, "wall_ms": walls, "stages": stages,
-            "busy_ms": busy}
+    return {"wall_ms": wall, "busy_ms": busy}
 
+
+def verify_in_two_sub_batches(torch, hw: dict, backend, sets, swapped,
+                              rand_fn) -> None:
+    """The sub-batch split under one K: LIGHTHOUSE_TPU_PIPELINE_SETS =
+    half the batch cuts BASELINE row 1 into two C = 4 work items (each
+    640 → 768 → 384 → 512 → 256 → 128 lanes), and the finalize takes 256
+    lanes."""
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.crypto import tpu_backend as TB
+
+    os.environ["LIGHTHOUSE_TPU_PIPELINE_SETS"] = str(len(sets) // 2)
+    try:
+        zero_launches(HK.LAUNCHES, PK.LAUNCHES)
+        ok, split_ms = timed(torch, lambda: backend.verify_signature_sets(
+            sets, rand_fn=rand_fn))
+        launches = {**HK.LAUNCHES, **PK.LAUNCHES}
+        stats = dict(TB.LAST_PIPELINE_STATS)
+        check(ok is True, "the valid batch in two sub-batches did not verify")
+        want = {"prepare": 2, "hash_g2": 2, "sigma": 2, "miller_fold": 2,
+                "product_chunks": 5, "finalize": 1, "miller": 0, "product": 0}
+        check(launches == want and stats["dispatches"] == 2,
+              f"split launches {launches}, dispatches {stats['dispatches']}; "
+              f"want {want} and 2")
+        check(backend.verify_signature_sets(swapped, rand_fn=rand_fn)
+              is False, "the key-swapped batch in two sub-batches verified")
+    finally:
+        del os.environ["LIGHTHOUSE_TPU_PIPELINE_SETS"]
+    print(f"verify {len(sets)} sets in two sub-batches "
+          f"(LIGHTHOUSE_TPU_PIPELINE_SETS={len(sets) // 2}): valid True in "
+          f"{split_ms:.1f} ms, key swap False; launches {launches}; "
+          f"host_prep_ms {stats['host_prep_ms']:.2f}, overlap_efficiency "
+          f"{stats['overlap_efficiency']} [{hw['card']}]")
+
+
+def phase_general_verify(torch, hw: dict, sets, rand_fn) -> dict:
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto import curve as C
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.crypto import tpu_backend as TB
+
+    backend = bls.get_backend()
+    check(backend.name == "tpu", f"default BLS backend is {backend.name}")
+    tampered = {}
+    bad = list(sets)
+    bad[17] = bls.SignatureSet(sets[17].signature, sets[18].signing_keys,
+                               sets[17].message)           # bench.py's swap
+    tampered["key swap (bench.py)"] = bad
+    bad = list(sets)
+    bad[5] = bls.SignatureSet(sets[6].signature, sets[5].signing_keys,
+                              sets[5].message)
+    tampered["wrong signature"] = bad
+    bad = list(sets)
+    bad[9] = bls.SignatureSet(sets[9].signature, sets[9].signing_keys,
+                              sets[9].message + b"!")
+    tampered["altered message"] = bad
+    bad = list(sets)
+    half = sets[33].signing_keys[:GEN_KEYS // 2]
+    bad[33] = bls.SignatureSet(
+        sets[33].signature,
+        half + [bls.PublicKey(C.g1_neg(k.point)) for k in half],
+        sets[33].message)
+    tampered["identity key sum"] = bad
+
+    TB._PK_TABLE = TB._DevicePubkeyTable()        # cold: an empty table
+    zero_launches(HK.LAUNCHES, PK.LAUNCHES)
+    ok, cold_ms = timed(torch, lambda: backend.verify_signature_sets(
+        sets, rand_fn=rand_fn))
+    launches = {**HK.LAUNCHES, **PK.LAUNCHES}
+    check(ok is True, "the valid 1024 × 16 batch did not verify")
+    check(TB.LAST_PIPELINE_STATS.get("path") == "cuda_general",
+          f"the batch took {TB.LAST_PIPELINE_STATS.get('path')}")
+    print(f"general verify main-path launches (one call): {launches} "
+          f"[{hw['card']}]")
+    want = {"prepare": 1, "hash_g2": 1, "sigma": 1, "miller_fold": 1,
+            "product_chunks": 3, "finalize": 1, "miller": 0, "product": 0}
+    check(launches == want, f"launches {launches} != {want}")
+    print(f"verify 1024 sets × 16 keys: valid True, cold {cold_ms:.1f} ms "
+          f"(empty pubkey table, {TB._PK_TABLE._n - 1} keys added)")
+    for name, batch in tampered.items():
+        check(backend.verify_signature_sets(batch, rand_fn=rand_fn) is False,
+              f"the batch with a {name} verified")
+    print("tampered batches all False: " + ", ".join(tampered))
+    walls = [timed(torch, lambda: backend.verify_signature_sets(
+        sets, rand_fn=rand_fn))[1] for _ in range(VERIFY_RUNS)]
+    print(f"general verify warm wall ms {[round(w, 1) for w in walls]} "
+          f"median {statistics.median(walls):.1f} [{hw['card']}]")
+    stats = dict(TB.LAST_PIPELINE_STATS)
+    syncs = host_syncs(torch, lambda: backend.verify_signature_sets(
+        sets, rand_fn=rand_fn))
+    print(f"host syncs in one warm general verify: {len(syncs)} {syncs}")
+    check(len(syncs) == 1, f"a general verify made {len(syncs)} host "
+                           f"syncs, not 1 (the verdict): {syncs}")
+    stages = fenced_stages(TB, TB.LAST_PIPELINE_STATS, lambda:
+                           backend.verify_signature_sets(sets,
+                                                         rand_fn=rand_fn))
+    print("general stage split (ms, each stage fenced): " + json.dumps(
+        {k: (round(v, 2) if isinstance(v, float) else v)
+         for k, v in stages.items()}) + f" [{hw['card']}]")
+    prof = profile_call(torch, hw, "general verify 1024 × 16", lambda:
+                        backend.verify_signature_sets(sets, rand_fn=rand_fn))
+
+    verify_in_two_sub_batches(torch, hw, backend, sets,
+                              tampered["key swap (bench.py)"], rand_fn)
+    return {"launches": launches, "cold_ms": cold_ms, "walls": walls,
+            "stats": stats, "stages": stages, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: a mainnet block's batch through the multi-K route
+# ---------------------------------------------------------------------------
+
+def phase_block_verify(torch, hw: dict, block, rand_fn) -> dict:
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto import curve as C
+    from lighthouse_tpu_torch.crypto import hash_to_curve as H2C
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.crypto import tpu_backend as TB
+    from lighthouse_tpu_torch.crypto.fields import R
+
+    sets, pks, sk = block
+    backend = bls.get_backend()
+    ks = sorted({len(s.signing_keys) for s in sets})
+    print(f"block batch: {len(sets)} sets, key counts {ks[0]}..{ks[-1]} "
+          f"(K buckets {sorted({TB._next_pow2(k) for k in ks})})")
+    zero_launches(HK.LAUNCHES, PK.LAUNCHES)
+    ok, ms = timed(torch, lambda: backend.verify_signature_sets(
+        sets, rand_fn=rand_fn))
+    launches = {**HK.LAUNCHES, **PK.LAUNCHES}
+    check(ok is True, "the valid block batch did not verify")
+    want = {"prepare": 2, "hash_g2": 2, "sigma": 2, "miller_fold": 2,
+            "product_chunks": 2, "finalize": 1, "miller": 0, "product": 0}
+    check(launches == want, f"block launches {launches} != {want}")
+    check(TB.LAST_PIPELINE_STATS["dispatches"] == 2,
+          f"block batch dispatches {TB.LAST_PIPELINE_STATS['dispatches']}")
+    bad = list(sets)
+    bad[3] = bls.SignatureSet(sets[4].signature, sets[3].signing_keys,
+                              sets[3].message)
+    check(backend.verify_signature_sets(bad, rand_fn=rand_fn) is False,
+          "the block batch with a swapped signature verified")
+    warm = [timed(torch, lambda: backend.verify_signature_sets(
+        sets, rand_fn=rand_fn))[1] for _ in range(3)]
+    print(f"block verify: valid True ({ms:.1f} ms cold table for its keys, "
+          f"warm {[round(w, 1) for w in warm]} ms), swapped signature "
+          f"False; launches {launches}: two work items, the finalize on 256 "
+          f"lanes [{hw['card']}]")
+    stages = fenced_stages(TB, TB.LAST_PIPELINE_STATS, lambda:
+                           backend.verify_signature_sets(sets,
+                                                         rand_fn=rand_fn))
+    print("block stage split (ms, each stage fenced, summed over the two "
+          "work items): " + json.dumps(
+              {k: (round(v, 2) if isinstance(v, float) else v)
+               for k, v in stages.items()}) + f" [{hw['card']}]")
+
+    att = sets[0]
+    check(backend.verify(att.signature, att.signing_keys, att.message)
+          is True, "verify of one attestation aggregate failed")
+    check(backend.verify(att.signature, att.signing_keys,
+                         att.message + b"!") is False,
+          "verify of an altered message passed")
+    signers = [int(v) for v in np.arange(4) * 1000 + 3 + GEN_SETS * GEN_KEYS]
+    msgs = [b"aggregate-verify-%d" % i for i in range(4)]
+    agg = None
+    for v, m in zip(signers, msgs):
+        agg = C.g2_add(agg, C.g2_mul(H2C.hash_to_g2(m), sk[v] % R))
+    keys = [pks[v] for v in signers]
+    check(backend.aggregate_verify(bls.Signature(agg), keys, msgs) is True,
+          "aggregate_verify of 4 signers failed")
+    check(backend.aggregate_verify(bls.Signature(agg), keys,
+                                   msgs[1:] + msgs[:1]) is False,
+          "aggregate_verify with the messages rotated passed")
+    print("verify: valid True, altered message False; aggregate_verify "
+          "(4 signers): valid True, messages rotated False")
+    return {"launches": launches, "ms": ms, "warm": warm, "stages": stages}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the stage profile and the latency chain (miller, product)
+# ---------------------------------------------------------------------------
+
+def phase_profiles(torch, hw: dict) -> dict:
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.crypto import profiling
+
+    zero_launches(HK.LAUNCHES, PK.LAUNCHES)
+    prof = profiling.profile_stages(n=10, C=8)
+    stage_launches = {**HK.LAUNCHES, **PK.LAUNCHES}
+    print("profile_stages(C=8): " + json.dumps(
+        {k: (round(v, 3) if isinstance(v, float) else v)
+         for k, v in prof.items()}) + f" [{hw['card']}]")
+    check(stage_launches["miller"] > 0, "the stage profile never launched "
+                                        "the miller kernel")
+
+    dev = device_of_port()
+    rng = np.random.default_rng(SEED + 4)
+    S = PK.PREP_S
+
+    def planes(rows, cols):
+        return torch.from_numpy(rng.integers(0, 2 ** 16, (rows, cols))
+                                .astype(np.int32)).to(dev)
+
+    pk, g2 = planes(64, 2 * S), planes(128, 2 * S)
+    ones = torch.ones((1, 2 * S), dtype=torch.int32, device=dev)
+    zeros = torch.zeros((1, 2 * S), dtype=torch.int32, device=dev)
+    zero_launches(HK.LAUNCHES, PK.LAUNCHES)
+    g1, _fl = PK.prepare_kernel_call(pk, ones, ones, zeros, 1)
+    f = PK.miller_kernel_call(g1, g2)
+    PK.product_kernel_call(f, ones)
+    chain = {}
+    for name, fn in (
+            ("prepare", lambda: PK.prepare_kernel_call(pk, ones, ones,
+                                                       zeros, 1)),
+            ("miller(256)", lambda: PK.miller_kernel_call(g1, g2)),
+            ("product(256)", lambda: PK.product_kernel_call(f, ones))):
+        chain[name] = cuda_ms(torch, fn, 10)
+
+    def whole():
+        a, _ = PK.prepare_kernel_call(pk, ones, ones, zeros, 1)
+        PK.product_kernel_call(PK.miller_kernel_call(a, g2), ones)
+
+    chain["chain"] = cuda_ms(torch, whole, 10)
+    chain_launches = {**HK.LAUNCHES, **PK.LAUNCHES}
+    print("latency chain (ms per call, median of 10): " + json.dumps(
+        {k: round(v, 3) for k, v in chain.items()}) + f" [{hw['card']}]")
+    check(chain_launches["product"] > 0, "the latency chain never launched "
+                                         "the product kernel")
+    return {"stages": prof, "chain": chain,
+            "launches": {"miller": stage_launches["miller"],
+                         "product": chain_launches["product"]}}
 
 
 def main() -> None:
@@ -879,12 +1546,44 @@ def main() -> None:
     bk = phase_bls_kernels(torch, hw, sets, rand_fn)
     bv = phase_bls_verify(torch, hw, sets, rand_fn)
 
+    from lighthouse_tpu_torch.crypto import curve as C
+    from lighthouse_tpu_torch.crypto import hash_to_curve as H2C
+    t0 = time.perf_counter()
+    n_keys = GEN_SETS * GEN_KEYS + BLOCK_AGGREGATES * COMMITTEE
+    keys = derive_g1_keys(F, C, GEN_SK0, GEN_SK_STEP, n_keys)
+    for v in (0, 1, 12345, n_keys - 1):
+        check(keys[v] == C.g1_mul(C.G1_GEN, GEN_SK0 + GEN_SK_STEP * v),
+              f"derived key {v} != [sk]G")
+    t_keys = time.perf_counter() - t0
+    gsets = build_general_batch(bls, C, H2C, F, keys)
+    t_gen = time.perf_counter() - t0 - t_keys
+    block = build_block_batch(bls, C, H2C, F, keys,
+                              np.random.default_rng(SEED + 6))
+    print(f"general-path set-up (host, pure Python): {n_keys} G1 keys in "
+          f"{t_keys:.1f} s, {GEN_SETS} signatures in {t_gen:.1f} s, the "
+          f"block's {len(block[0])} sets in "
+          f"{time.perf_counter() - t0 - t_keys - t_gen:.1f} s")
+    grng = np.random.default_rng(SEED + 5)
+
+    def grand():
+        return int(grng.integers(1, 2 ** 64, dtype=np.uint64))
+
+    gk = phase_general_kernels(torch, hw, gsets, grand)
+    gv = phase_general_verify(torch, hw, gsets, grand)
+    phase_block_verify(torch, hw, block, grand)
+    pf = phase_profiles(torch, hw)
+
     replaces = {"hash64": "lighthouse_tpu/ops/merkle_kernel.py:192",
                 "subtree": "lighthouse_tpu/ops/merkle_kernel.py:159",
                 "hash_g2": "lighthouse_tpu/crypto/htc_kernel.py:285",
                 "sigma": "lighthouse_tpu/crypto/pairing_kernel.py:1001",
                 "miller_fold": "lighthouse_tpu/crypto/pairing_kernel.py:938",
-                "finalize": "lighthouse_tpu/crypto/pairing_kernel.py:1165"}
+                "finalize": "lighthouse_tpu/crypto/pairing_kernel.py:1165",
+                "prepare": "lighthouse_tpu/crypto/pairing_kernel.py:1240",
+                "product_chunks":
+                    "lighthouse_tpu/crypto/pairing_kernel.py:877",
+                "miller": "lighthouse_tpu/crypto/pairing_kernel.py:781",
+                "product": "lighthouse_tpu/crypto/pairing_kernel.py:843"}
     kernels = []
     for name in ("hash64", "subtree"):
         t = kern["timing"][name]
@@ -897,6 +1596,7 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    general_errs = {**gk["errs"], "finalize": gk["errs"]["finalize_wide"]}
     for name in ("hash_g2", "sigma", "miller_fold", "finalize"):
         t = bk["timing"][name]
         kernels.append({
@@ -904,7 +1604,21 @@ def main() -> None:
             "source": "lighthouse_tpu_torch/csrc/bls381.cu",
             "replaces": replaces[name],
             "launches": bv["launches"][name],
-            "max_abs_err": bk["errs"][name],
+            "max_abs_err": max(bk["errs"][name], general_errs[name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    launches = {"prepare": gv["launches"]["prepare"],
+                "product_chunks": gv["launches"]["product_chunks"],
+                **pf["launches"]}
+    for name in ("prepare", "product_chunks", "miller", "product"):
+        t = gk["timing"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "lighthouse_tpu_torch/csrc/bls381.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": gk["errs"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})

@@ -18,6 +18,9 @@ KNOBS = {
     "LIGHTHOUSE_TPU_DEVICE_STATE": (
         True, "Device-resident BeaconState: device memory is the hashing "
               "source of truth (0 = host incremental oracle)."),
+    "LIGHTHOUSE_TPU_PIPELINE_SETS": (
+        1024, "Sub-batch size of the staged BLS executor; 0 disables "
+              "pipelining.", 0),
     "LIGHTHOUSE_TPU_SHARED_MIN": (
         8, "Batch size from which the collapsed shared-key verify path "
            "wins over the general path.", 1),

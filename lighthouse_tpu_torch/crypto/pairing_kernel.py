@@ -1,25 +1,35 @@
 """Batched BLS12-381 pairing on the GPU: CUDA kernel wrappers and their
 plain PyTorch versions.
 
-Port of ``lighthouse_tpu/crypto/pairing_kernel.py``.  Three of its Pallas
-kernels become CUDA kernels written for Hopper (``csrc/bls381.cu`` with
-the field core in ``csrc/bls381_field.cuh``, built at first use by
+Port of ``lighthouse_tpu/crypto/pairing_kernel.py``.  Its Pallas kernels
+become CUDA kernels written for Hopper (``csrc/bls381.cu`` with the field
+core in ``csrc/bls381_field.cuh``, built at first use by
 :mod:`..ops.cuda_build`):
 
+- :func:`prepare_kernel_call` — per set, the sum of its K affine G1 keys
+  (masked slots add the identity), the identity flag, the 64-bit RLC
+  ladder and the affine result (replaces ``_prepare_kernel``);
 - :func:`sigma_kernel_call` — masked G2 × 64-bit RLC ladder, then a
   128-lane roll-add butterfly (replaces ``_sigma_kernel``);
 - :func:`miller_fold_kernel_call` — the 63-iteration Miller loop,
   conjugate, mask and the fold of lane j with lane j+128 (replaces
   ``_miller_fold_kernel``);
-- :func:`finalize_kernel_call` — the 128 → 1 Fq12 fold, then the easy
-  and hard parts of the cubed final exponentiation and ``== 1`` (replaces
-  ``_finalize_easy_kernel`` + ``_finalize_hard_kernel``; the TPU split
-  the two halves only to fit its scoped-VMEM budget).
+- :func:`miller_kernel_call` — the Miller loop alone, every lane
+  (replaces ``_miller_kernel``; the stage profile runs it);
+- :func:`product_chunks_kernel_call` — per 256-lane chunk, the masked
+  product of lane j and lane j+128 (replaces ``_product_chunk_kernel``);
+- :func:`product_kernel_call` — the masked roll butterfly down to the 128
+  residue-class products (replaces ``_product_kernel``);
+- :func:`finalize_kernel_call` — ``product_chunks`` down to 128 lanes,
+  then the 128 → 1 Fq12 fold, the easy and hard parts of the cubed final
+  exponentiation and ``== 1`` (replaces ``_finalize_easy_kernel`` +
+  ``_finalize_hard_kernel``; the TPU split the two halves only to fit its
+  scoped-VMEM budget).
 
-Beside each wrapper sits its plain PyTorch version (:func:`sigma_plain`,
-:func:`miller_fold_plain`, :func:`finalize_plain`).  A wrapper runs the
-plain version only for a tensor on the CPU; for a CUDA tensor it launches
-its kernel or raises.  :data:`LAUNCHES` counts kernel launches.
+Beside each wrapper sits its plain PyTorch version (``*_plain``).  A
+wrapper runs the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches its kernel or raises.  :data:`LAUNCHES` counts kernel
+launches.
 
 Boundary layouts are the JAX package's: an Fq element is 26 16-bit
 Montgomery limbs (R = 2^416, residues < 2N) in a 32-row block, lanes
@@ -29,14 +39,14 @@ affine ``(128, M)``, G2 projective ``(192, M)``, Fq12 ``(384, M)``.
 Inside the plain versions a tower element is an int64 tensor with the
 limb axis first and its coefficient axes last: Fq ``(26, *S)``, Fq2
 ``(26, *S, 2)``, Fq6 ``(26, *S, 3, 2)``, Fq12 ``(26, *S, 2, 3, 2)``, a
-projective G2 point ``(26, *S, 3, 2)``.  Every operation is the
-reference's, value for value (the same Karatsuba tower, RCB complete
-addition, Miller steps, butterfly orders and lazy reduction below 2N),
-so the plain versions agree with the JAX package limb for limb; they
-batch independent products into one wide Montgomery multiply as the
-reference does, and stack independent additions too.  They run under
-``torch.inference_mode`` (tens of thousands of small ops; it trims the
-dispatch cost of each).
+projective G1 point ``(26, *S, 3)``, a projective G2 point
+``(26, *S, 3, 2)``.  Every operation is the reference's, value for value
+(the same Karatsuba tower, RCB complete addition, Miller steps, butterfly
+orders and lazy reduction below 2N), so the plain versions agree with the
+JAX package limb for limb; they batch independent products into one wide
+Montgomery multiply as the reference does, and stack independent
+additions too.  They run under ``torch.inference_mode`` (tens of
+thousands of small ops; it trims the dispatch cost of each).
 """
 
 from __future__ import annotations
@@ -64,7 +74,8 @@ P_MINUS_2_BITS = XP.P_MINUS_2_BITS   # 381 bits
 
 _M16 = 0xFFFF
 
-LAUNCHES = {"sigma": 0, "miller_fold": 0, "finalize": 0}
+LAUNCHES = {"prepare": 0, "sigma": 0, "miller_fold": 0, "miller": 0,
+            "product_chunks": 0, "product": 0, "finalize": 0}
 
 # Lane-products through mont_mul since the last reset: the operation
 # count chip_smoke.py turns into a bound (products × instructions per
@@ -562,13 +573,81 @@ def _fq2_one(lanes_shape, dev):
 
 
 # ---------------------------------------------------------------------------
-# Sigma: masked G2 RLC ladder + 128-lane butterfly
+# Prepare: per-set G1 key sum + RLC ladder + affine
 # ---------------------------------------------------------------------------
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns → int64 u32 values."""
     return x.to(torch.int64) & 0xFFFFFFFF
 
+
+@torch.inference_mode()
+def prepare_plain(pk_planes, kmask, lo, hi, K: int):
+    """Plain PyTorch version of :func:`prepare_kernel_call`.  Only the
+    sets with a live key slot or a nonzero scalar run; every other lane
+    is a dead set, whose sum stays the exact identity (0 : 1 : 0), so the
+    kernel writes flag 1 and (0, 0) there, as this does."""
+    m = lo.shape[1]
+    dev = pk_planes.device
+    xy = planes_in(pk_planes, 2).reshape(LIMBS, m // PREP_S, K, PREP_S, 2)
+    xy = xy.permute(0, 2, 1, 3, 4).reshape(LIMBS, K, m, 2)   # set-major
+    live = (kmask[0] != 0).reshape(m // PREP_S, K, PREP_S)
+    live = live.permute(1, 0, 2).reshape(K, m)
+    lo, hi = _u32(lo[0]), _u32(hi[0])
+    active = torch.nonzero(live.any(0) | (lo != 0) | (hi != 0)).flatten()
+    out = torch.zeros((2 * BLOCK_ROWS, m), dtype=torch.int32, device=dev)
+    flags = torch.ones((1, m), dtype=torch.int32, device=dev)
+    n = active.numel()
+    if n:
+        ident = point_identity(_G1ops, (n,), dev)
+        one = _consts_for(str(dev)).ONE.reshape(LIMBS, 1, 1).expand(
+            LIMBS, n, 1)
+        acc = ident
+        for k in range(K):
+            pt = torch.cat([xy[:, k, active], one], -1)
+            acc = point_add(_G1ops, acc, _sel(live[k, active], pt, ident))
+        flags[0, active] = k_is_zero(acc[..., 2]).to(torch.int32)
+        scaled = scalar_mul(_G1ops, acc, lo[active], hi[active])
+        zi = fq_inv(scaled[..., 2])
+        out[:, active] = planes_out(mont_mul(scaled[..., :2],
+                                             zi.unsqueeze(-1)))
+    return out, flags
+
+
+def prepare_kernel_call(pk_planes, kmask, lo, hi, K: int):
+    """pk (64, C·K·128) affine G1 key blocks (chunk c's key k of set s at
+    column c·K·128 + k·128 + s), kmask (1, C·K·128), lo/hi (1, C·128)
+    int32 (u32 RLC scalar words) → (g1_aff (64, C·128), flags (1, C·128)
+    int32): lane s of chunk c holds the affine c_s·Σ_k pk, and flag 1
+    where that key sum is the identity."""
+    S = PREP_S
+    _check_planes(pk_planes, 2 * BLOCK_ROWS, "pk", K * S)
+    mk = pk_planes.shape[1]
+    m = mk // K
+    _check_planes(kmask, 1, "kmask")
+    if kmask.shape[1] != mk or kmask.device != pk_planes.device:
+        raise ValueError(f"kmask must be (1, {mk}) on {pk_planes.device}")
+    for name, v in (("lo", lo), ("hi", hi)):
+        _check_planes(v, 1, name)
+        if v.shape[1] != m or v.device != pk_planes.device:
+            raise ValueError(f"{name} must be (1, {m}) on {pk_planes.device}")
+    if pk_planes.device.type == "cpu":
+        return prepare_plain(pk_planes, kmask, lo, hi, K)
+    _require_cuda(pk_planes)
+    dev = pk_planes.device
+    out = torch.empty((2 * BLOCK_ROWS, m), dtype=torch.int32, device=dev)
+    flags = torch.empty((1, m), dtype=torch.int32, device=dev)
+    lib = kernel_library()
+    _check_rc(lib.lh_prepare(_ptr(pk_planes), _ptr(kmask), _ptr(lo), _ptr(hi),
+                             out.data_ptr(), flags.data_ptr(), m, K,
+                             _stream(pk_planes)), "prepare")
+    LAUNCHES["prepare"] += 1
+    return out, flags
+
+
+# ---------------------------------------------------------------------------
+# Sigma: masked G2 RLC ladder + 128-lane butterfly
+# ---------------------------------------------------------------------------
 
 @torch.inference_mode()
 def sigma_plain(sig_cols, mask, lo, hi):
@@ -755,6 +834,124 @@ def miller_fold_kernel_call(g1_planes, g2_planes, mask):
     return out
 
 
+@torch.inference_mode()
+def miller_plain(g1_planes, g2_planes):
+    """Plain PyTorch version of :func:`miller_kernel_call`.  Lanes with
+    equal inputs give equal outputs, so each distinct (g1, g2) lane is
+    computed once."""
+    pairs, inv = torch.unique(torch.cat([g1_planes, g2_planes]).T, dim=0,
+                              return_inverse=True)
+    P = planes_in(pairs[:, :2 * BLOCK_ROWS].T, 2)
+    Q = planes_in(pairs[:, 2 * BLOCK_ROWS:].T, 4).reshape(LIMBS, -1, 2, 2)
+    f = miller_loop(P[..., 0], P[..., 1], Q[..., 0, :], Q[..., 1, :])
+    return planes_out(f.reshape(LIMBS, -1, 12)[:, inv])
+
+
+def miller_kernel_call(g1_planes, g2_planes):
+    """g1 (64, M) affine blocks, g2 (128, M), M a multiple of 128 → the
+    conjugated Miller value of every lane, (384, M)."""
+    _check_planes(g1_planes, 2 * BLOCK_ROWS, "g1", LANE_BLOCK)
+    m = g1_planes.shape[1]
+    _check_planes(g2_planes, 4 * BLOCK_ROWS, "g2", LANE_BLOCK)
+    if g2_planes.shape[1] != m or g2_planes.device != g1_planes.device:
+        raise ValueError(f"g2 must be (128, {m}) on {g1_planes.device}")
+    if g1_planes.device.type == "cpu":
+        return miller_plain(g1_planes, g2_planes)
+    _require_cuda(g1_planes)
+    out = torch.empty((FQ12_ROWS, m), dtype=torch.int32,
+                      device=g1_planes.device)
+    _check_rc(kernel_library().lh_miller(_ptr(g1_planes), _ptr(g2_planes),
+                                         out.data_ptr(), m,
+                                         _stream(g1_planes)), "miller")
+    LAUNCHES["miller"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Lane products: the 256 → 128 chunk fold and the roll butterfly
+# ---------------------------------------------------------------------------
+
+def _fq12_masked(f_planes, mask):
+    """(384, M) blocks → (26, M, 2, 3, 2) limbs, 1 where the mask is 0."""
+    m = f_planes.shape[1]
+    f = planes_in(f_planes, 12).reshape(LIMBS, m, 2, 3, 2)
+    return _sel(mask[0] != 0, f, fq12_one_like((m,), f.device))
+
+
+def _check_product_args(f_planes, mask, lanes_ok, what: str):
+    _check_planes(f_planes, FQ12_ROWS, "f")
+    m = f_planes.shape[1]
+    if not lanes_ok(m):
+        raise ValueError(f"lane count must be {what}, got {m}")
+    _check_planes(mask, 1, "mask")
+    if mask.shape[1] != m or mask.device != f_planes.device:
+        raise ValueError(f"mask must be (1, {m}) on {f_planes.device}")
+    return m
+
+
+@torch.inference_mode()
+def product_chunks_plain(f_planes, mask):
+    """Plain PyTorch version of :func:`product_chunks_kernel_call`."""
+    m = f_planes.shape[1]
+    f = _fq12_masked(f_planes, mask).reshape(
+        LIMBS, m // (2 * LANE_BLOCK), 2, LANE_BLOCK, 2, 3, 2)
+    out = fq12_mul(f[:, :, 0], f[:, :, 1])     # lane j · lane j+128
+    return planes_out(out.reshape(LIMBS, m // 2, 12))
+
+
+def product_chunks_kernel_call(f_planes, mask):
+    """f (384, C·256), mask (1, C·256) int32 → (384, C·128): output lane j
+    of chunk c is the masked f_{c·256+j} · f_{c·256+j+128}."""
+    m = _check_product_args(f_planes, mask,
+                            lambda n: n > 0 and n % (2 * LANE_BLOCK) == 0,
+                            "C · 256")
+    if f_planes.device.type == "cpu":
+        return product_chunks_plain(f_planes, mask)
+    _require_cuda(f_planes)
+    out = torch.empty((FQ12_ROWS, m // 2), dtype=torch.int32,
+                      device=f_planes.device)
+    _check_rc(kernel_library().lh_product_chunks(
+        _ptr(f_planes), _ptr(mask), out.data_ptr(), m, _stream(f_planes)),
+        "product_chunks")
+    LAUNCHES["product_chunks"] += 1
+    return out
+
+
+@torch.inference_mode()
+def product_plain(f_planes, mask):
+    """Plain PyTorch version of :func:`product_kernel_call`."""
+    m = f_planes.shape[1]
+    f = _fq12_masked(f_planes, mask)
+    w = m // 2
+    while w >= LANE_BLOCK:      # lane j times lane (j + w) mod M
+        f = fq12_mul(f, torch.roll(f, -w, dims=1))
+        w //= 2
+    return planes_out(f.reshape(LIMBS, m, 12))
+
+
+def _pow2_lanes(n: int) -> bool:
+    return n >= LANE_BLOCK and n & (n - 1) == 0
+
+
+def product_kernel_call(f_planes, mask):
+    """f (384, M), mask (1, M) int32, M a power of two ≥ 128 → (384, M):
+    lane j holds the product of the masked lanes ≡ j (mod 128), by the
+    reference's roll butterfly (w = M/2 … 128)."""
+    m = _check_product_args(f_planes, mask, _pow2_lanes,
+                            "a power of two ≥ 128")
+    if f_planes.device.type == "cpu":
+        return product_plain(f_planes, mask)
+    _require_cuda(f_planes)
+    dev = f_planes.device
+    out = torch.empty((FQ12_ROWS, m), dtype=torch.int32, device=dev)
+    scratch = torch.empty((2 * m, 12 * 13), dtype=torch.int32, device=dev)
+    _check_rc(kernel_library().lh_product(
+        _ptr(f_planes), _ptr(mask), scratch.data_ptr(), out.data_ptr(), m,
+        _stream(f_planes)), "product")
+    LAUNCHES["product"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Finalize: 128 → 1 fold + cubed final exponentiation + == 1
 # ---------------------------------------------------------------------------
@@ -792,9 +989,14 @@ def final_exp_hard(m):
 
 @torch.inference_mode()
 def finalize_plain(f_planes, with_value: bool = False):
-    """Plain PyTorch version of :func:`finalize_kernel_call`.  The fold
-    keeps only the lanes that lane 0's result reads (step w multiplies
-    lane j by lane j + w for j < w), so lane 0 is the reference's lane 0."""
+    """Plain PyTorch version of :func:`finalize_kernel_call`: the
+    256 → 128 chunk folds down to 128 lanes, then the fold keeps only
+    the lanes that lane 0's result reads (step w multiplies lane j by
+    lane j + w for j < w), so lane 0 is the reference's lane 0."""
+    while f_planes.shape[1] > LANE_BLOCK:
+        f_planes = product_chunks_plain(f_planes, torch.ones(
+            (1, f_planes.shape[1]), dtype=torch.int32,
+            device=f_planes.device))
     f = planes_in(f_planes, 12).reshape(LIMBS, LANE_BLOCK, 2, 3, 2)
     w = LANE_BLOCK // 2
     while w >= 1:
@@ -808,15 +1010,19 @@ def finalize_plain(f_planes, with_value: bool = False):
 
 
 def finalize_kernel_call(f_planes, with_value: bool = False):
-    """(384, 128) residue-class products → (1, 1) int32 ``∏ == 1`` flag
-    (with ``with_value``, also the (384, 1) cubed final exponentiation
-    of the product).  Wider inputs need the 256 → 128 product kernel,
-    which the general path (slice 3) ports."""
+    """(384, M) residue-class products, M a power of two ≥ 128 → (1, 1)
+    int32 ``∏ == 1`` flag (with ``with_value``, also the (384, 1) cubed
+    final exponentiation of the product).  Above 128 lanes,
+    :func:`product_chunks_kernel_call` halves the width first, as the
+    reference's ``_finalize_call_body`` does."""
     _check_planes(f_planes, FQ12_ROWS, "f")
-    if f_planes.shape[1] != LANE_BLOCK:
-        raise NotImplementedError(
-            f"finalize takes 128 lanes; {f_planes.shape[1]} lanes need "
-            "product_chunks, which the general verify path (slice 3) ports")
+    if not _pow2_lanes(f_planes.shape[1]):
+        raise ValueError("lane count must be a power of two ≥ 128, got "
+                         f"{f_planes.shape[1]}")
+    while f_planes.shape[1] > LANE_BLOCK:
+        ones = torch.ones((1, f_planes.shape[1]), dtype=torch.int32,
+                          device=f_planes.device)
+        f_planes = product_chunks_kernel_call(f_planes, ones)
     if f_planes.device.type == "cpu":
         return finalize_plain(f_planes, with_value)
     _require_cuda(f_planes)
@@ -849,6 +1055,14 @@ _SIGNATURES = {
     "lh_miller_fold": [_P, _P, _P, _P, _LL, _P],
     # f, scratch, ok, g, stream
     "lh_finalize": [_P, _P, _P, _P, _P],
+    # pk, kmask, lo, hi, out, flags, set lanes, K, stream
+    "lh_prepare": [_P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, _P],
+    # f, mask, out, lanes, stream
+    "lh_product_chunks": [_P, _P, _P, _LL, _P],
+    # g1, g2, out, lanes, stream
+    "lh_miller": [_P, _P, _P, _LL, _P],
+    # f, mask, scratch, out, lanes, stream
+    "lh_product": [_P, _P, _P, _P, _LL, _P],
     # a, b, out, lanes, stream
     "lh_fp_mul": [_P, _P, _P, _LL, _P],
 }

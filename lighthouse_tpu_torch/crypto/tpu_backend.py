@@ -1,27 +1,36 @@
 """The ``tpu`` BLS backend of the port — batched signature verification on
 the GPU (the registry name is the JAX package's).
 
-Port of the shared-key path of ``lighthouse_tpu/crypto/tpu_backend.py``.
-``verify_signature_sets`` collapses sets that share one signing-key list
-to one aggregated key (``_dedup_shared_keygroups``), and when the whole
-batch then signs under one key P (the sync-committee shape: 256 messages
-× the same 512 keys, ``fast_aggregate_verify``), bilinearity collapses
-the batch to TWO Miller lanes:
+Port of ``lighthouse_tpu/crypto/tpu_backend.py`` as it runs on its
+device path (``_use_pallas()`` true).  ``verify_signature_sets``,
+``verify`` and ``aggregate_verify`` all reach :func:`_dispatch`, which
+routes a batch to one of two device paths:
 
-    ∏_i e(c_i·P, H(m_i)) · e(−G, Σ c_i·σ_i)
-  = e(P, Σ c_i·H(m_i)) · e(−G, Σ c_i·σ_i)          == 1
+- **shared key.**  ``_dedup_shared_keygroups`` collapses sets that share
+  one signing-key list to one aggregated key; when the whole batch then
+  signs under one key P (the sync-committee shape, ``fast_aggregate_
+  verify``), bilinearity collapses it to TWO Miller lanes:
 
-Device stages (kernels of ``csrc/bls381.cu``): hash-to-G2 of every
-message → two RLC sigma folds (H side, σ side) + ``sigma_combine`` (plain
-PyTorch glue) → one fused Miller+fold cell with 2 live lanes → finalize.
+      ∏_i e(c_i·P, H(m_i)) · e(−G, Σ c_i·σ_i)
+    = e(P, Σ c_i·H(m_i)) · e(−G, Σ c_i·σ_i)          == 1
 
-Any other batch — sets under different keys, fewer than
-``LIGHTHOUSE_TPU_SHARED_MIN`` sets — needs the general path (prepare +
-product_chunks), which slice 3 of the port brings; it raises
-``NotImplementedError`` here, never runs on the host or the CPU quietly.
-The port has no native host library, so no small batch is sent to a host
-pairing (the JAX package's ``LIGHTHOUSE_TPU_HOST_FASTPATH_MAX``) and key
-aggregation is the pure-Python loop.
+  hash-to-G2 → two RLC sigma folds + ``sigma_combine`` → one fused
+  Miller+fold cell with 2 live lanes → finalize.
+- **general.**  Every other batch: the sets group by K = next-pow2(key
+  count) and split into sub-batches (:func:`_split_batches`); each runs
+  :func:`fused_pipeline_body` — gather of the keys from the device
+  pubkey table → prepare (c_i·Σ_k pk) → hash-to-G2 → sigma +
+  ``sigma_combine`` (the σ side as ONE lane e(−G, Σ c_i·σ_i)) → fused
+  Miller+fold → ``product_chunks`` down to 128 lanes — through the staged
+  executor; one shared finalize of all sub-batches' products gives the
+  verdict.
+
+Exactly one host sync per call: the final ``bool``.  The kernels are
+those of ``csrc/bls381.cu``; on a CPU device (the tests) their plain
+versions run, and with the default ``cuda`` device and no GPU every entry
+raises.  The port has no native host library, so no small batch goes to
+a host pairing (the JAX package's ``LIGHTHOUSE_TPU_HOST_FASTPATH_MAX``)
+and key aggregation is the pure-Python loop.
 """
 
 from __future__ import annotations
@@ -42,10 +51,6 @@ LAST_FAST_AGG_TIMINGS: dict = {}
 STAGE_TIMINGS = False
 
 TRANSFERS = D.transfer_counter("crypto.tpu_backend")
-
-_GENERAL_PATH = ("the general batch-verify path (prepare + product_chunks "
-                 "kernels) is ported in slice 3")
-
 
 def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
@@ -162,14 +167,15 @@ def _shared_group_key(entries):
 
 
 def _stage_sync(timings, name, t0, dev):
-    """When STAGE_TIMINGS is on, fence the queued work and record the
-    stage's wall time; otherwise leave the stream running."""
+    """When STAGE_TIMINGS is on, fence the queued work and add the
+    stage's wall time to ``timings[name]``; otherwise leave the stream
+    running."""
     if not STAGE_TIMINGS:
         return t0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
-    timings[name] = (t1 - t0) * 1e3
+    timings[name] = timings.get(name, 0.0) + (t1 - t0) * 1e3
     return t1
 
 
@@ -252,20 +258,344 @@ def _dispatch_shared(entries, pk_pt, rand_fn) -> bool:
     return verdict
 
 
+# ---------------------------------------------------------------------------
+# The general path: device pubkey table → fused pipeline per sub-batch
+# ---------------------------------------------------------------------------
+
+class _DevicePubkeyTable:
+    """Device-resident affine pubkey columns (the reference's
+    ``ValidatorPubkeyCache`` role): each distinct key is marshalled to its
+    (64,) limb column once, and a verify ships int32 column indices that
+    the device gathers.  Column 0 stays zero for masked slots.
+
+    The host keeps the whole table; :meth:`device` uploads it once and
+    afterwards copies the columns appended since its last call in one
+    transfer, from pinned memory without waiting (a pageable copy would
+    wait for the stream's queued work).  That write goes into the live
+    tensor: it lands on the stream after every gather queued before it,
+    and it writes columns no queued gather reads.  Capacity doubling and
+    the compaction in :meth:`maybe_reset` build new tensors instead.  At
+    ``max_keys`` the least-recently-used half of the keys is evicted and
+    the survivors compacted (generational halving), so never-seen keys
+    cannot grow the table without bound while hot validator keys stay
+    resident."""
+
+    def __init__(self, initial: int = 1 << 15, max_keys: int = 1 << 21):
+        self._initial = initial
+        self._max_keys = max_keys
+        self._reset()
+
+    def _reset(self) -> None:
+        self._index: dict = {}
+        self._last_used: dict = {}
+        self._gen = 0
+        self._host = np.zeros((64, self._initial), np.uint32)
+        self._n = 1  # column 0 stays zero for masked slots
+        self._device = None
+        self._synced = 0  # columns [0, _synced) are on the device
+
+    def maybe_reset(self) -> None:
+        """Call BETWEEN batches only: evicting mid-marshal would
+        invalidate indices already recorded for the in-flight batch.  At
+        the bound, keep the most recently USED half of the keys and
+        compact (recency, not insertion order, decides survival)."""
+        self._gen += 1
+        if self._n < self._max_keys:
+            return
+        keep = (self._n - 1) // 2
+        survivors = sorted(
+            self._index.items(),
+            key=lambda kv: (self._last_used.get(kv[0], 0), kv[1]),
+            reverse=True)[:keep]
+        survivors.sort(key=lambda kv: kv[1])  # stable column order
+        cols = [old for _, old in survivors]
+        cap = self._initial  # shrink to next pow2 >= survivors (+ col 0)
+        while cap < len(cols) + 1:
+            cap *= 2
+        host = np.zeros((64, cap), np.uint32)
+        host[:, 1:len(cols) + 1] = self._host[:, cols]  # one gather
+        index = {pt: i + 1 for i, (pt, _) in enumerate(survivors)}
+        self._host, self._index, self._n = host, index, len(cols) + 1
+        self._last_used = {pt: self._last_used.get(pt, 0) for pt in index}
+        self._device = None  # next device() uploads the compacted table
+        self._synced = 0
+
+    def index_of(self, point) -> int:
+        self._last_used[point] = self._gen
+        i = self._index.get(point)
+        if i is None:
+            if self._n == self._host.shape[1]:
+                self._host = np.concatenate(
+                    [self._host, np.zeros_like(self._host)], axis=1)
+            self._host[:, self._n] = np.frombuffer(_g1_aff_col(point),
+                                                   np.uint32)
+            i = self._index[point] = self._n
+            self._n += 1
+        return i
+
+    def device(self) -> torch.Tensor:
+        """The (64, capacity) int32 table on the device, with every
+        column appended so far."""
+        if self._device is None:
+            self._device = D.to_device_async(self._host, TRANSFERS)
+        elif self._synced < self._n:
+            if self._device.shape[1] < self._host.shape[1]:
+                grown = torch.zeros((64, self._host.shape[1]),
+                                    dtype=torch.int32,
+                                    device=self._device.device)
+                grown[:, :self._device.shape[1]] = self._device
+                self._device = grown
+            self._device[:, self._synced:self._n] = D.to_device_async(
+                self._host[:, self._synced:self._n], TRANSFERS)
+        self._synced = self._n
+        return self._device
+
+
+_PK_TABLE = _DevicePubkeyTable()
+
+
+def _sigma_g1_cell() -> np.ndarray:
+    """(64, 128) Miller-cell G1 input whose lane 0 is the affine −G (the
+    pair of the aggregated-signature lane); other lanes are masked."""
+    out = np.zeros((64, 128), np.uint32)
+    out[:, 0] = np.frombuffer(_g1_aff_col(C.g1_neg(C.G1_GEN)), np.uint32)
+    return out
+
+
+def _fq12_one_block() -> np.ndarray:
+    """(384, 128) Fq12 ONE blocks: the pad that makes a lane-block count
+    even (a masked-out lane of the product)."""
+    out = np.zeros((384, 128), np.uint32)
+    out[0:26, :] = np.asarray(LF.ONE_MONT)[:, None]
+    return out
+
+
+_SIGMA_G1_CELL = _sigma_g1_cell()
+_ONE_BLOCK = _fq12_one_block()
+
+
+@lru_cache(maxsize=None)
+def _cells_on(dev_str: str):
+    """(σ-lane G1 cell, Fq12 ONE block) as int32 tensors on one device."""
+    dev = torch.device(dev_str)
+    return tuple(torch.from_numpy(a.view(np.int32)).to(dev)
+                 for a in (_SIGMA_G1_CELL, _ONE_BLOCK))
+
+
+def _marshal_group(entries, rand_fn):
+    """One sub-batch's host marshalling: pubkey-table indices, RLC scalar
+    words, u-values, signature columns, masks (column placement
+    vectorized).  Returns host numpy arrays and the K bucket, byte for
+    byte the JAX package's."""
+    from . import pairing_kernel as PK
+
+    S = PK.PREP_S
+    n = len(entries)
+    C = _next_pow2((n + S - 1) // S)
+    K = _next_pow2(max(len(e[1]) for e in entries))
+
+    nkeys = np.fromiter((len(e[1]) for e in entries), np.int64, n)
+    total_keys = int(nkeys.sum())
+    flat_idx = np.fromiter(
+        (_PK_TABLE.index_of(kp) for e in entries for kp in e[1]),
+        np.int32, total_keys)
+    sets = np.arange(n)
+    c_arr, s_arr = sets // S, sets % S
+    starts = np.concatenate([[0], np.cumsum(nkeys)[:-1]])
+    within = np.arange(total_keys) - np.repeat(starts, nkeys)
+    kcol = (np.repeat(c_arr * K * S + s_arr, nkeys)
+            + within.astype(np.int64) * S)
+    idx = np.zeros(C * K * S, np.int32)
+    kmask = np.zeros((1, C * K * S), np.int32)
+    idx[kcol] = flat_idx
+    kmask[0, kcol] = 1
+
+    (_set_col, lo, hi, u_planes, sig_cols, sigmask,
+     setlive) = _rlc_message_sig_columns(entries, C, rand_fn)
+    return (idx, kmask, lo, hi, u_planes, sig_cols, sigmask, setlive, K)
+
+
+# Stats of the most recent general dispatch: sub-batches, staging
+# fallbacks, host marshalling and its overlap with device work, and (with
+# STAGE_TIMINGS on) each device stage's fenced wall time.
+LAST_PIPELINE_STATS: dict = {}
+
+
+def _pipeline_sets() -> int:
+    """Sub-batch size (sets per device dispatch) for the staged pipeline;
+    0 disables sub-batching (one dispatch per K-group)."""
+    from ..common.knobs import knob_int
+    return knob_int("LIGHTHOUSE_TPU_PIPELINE_SETS")
+
+
+def _split_batches(entries) -> list:
+    """Work list for the staged executor: entries group by K =
+    next-pow2(signer count) (one 512-key sync aggregate must not pad a
+    thousand single-key sets to K=512), and each group splits into
+    sub-batches of ≤ ``_pipeline_sets()`` sets.
+
+    Sub-batching is only sound when EVERY entry carries its own signature
+    (each sub-batch then verifies an independent pairing product):
+    ``aggregate_verify`` attaches one signature to the whole entry list,
+    so such batches stay whole per group."""
+    groups: dict = {}
+    for e in entries:
+        groups.setdefault(_next_pow2(max(1, len(e[1]))), []).append(e)
+    sub = _pipeline_sets()
+    splittable = sub > 0 and all(e[0] is not None for e in entries)
+    work = []
+    for k in sorted(groups):
+        g = groups[k]
+        if splittable:
+            work.extend(g[j:j + sub] for j in range(0, len(g), sub))
+        else:
+            work.append(g)
+    return work
+
+
+def miller_cell(g1_aggpk, h_cols, sig_col, sig_ident, sigmask, setlive):
+    """The fused Miller+fold inputs of one sub-batch: the C·128 set lanes
+    (c_i·aggpk_i, H(m_i)), then one 128-lane cell whose lane 0 pairs −G
+    with Σ c_i·σ_i (live when a signature is present and the sum is not
+    the identity), zero-padded to a multiple of 256 lanes.  Returns
+    (g1 (64, L), g2 (128, L), lane mask (1, L))."""
+    from . import pairing_kernel as PK
+
+    S = PK.PREP_S
+    dev = g1_aggpk.device
+    sig_cell = _cells_on(str(dev))[0]
+    pad = (-(g1_aggpk.shape[1] + S)) % (2 * S)
+
+    def zeros(rows, cols):
+        return torch.zeros((rows, cols), dtype=torch.int32, device=dev)
+
+    g1 = torch.cat([g1_aggpk, sig_cell, zeros(64, pad)], 1)
+    g2_sig = zeros(128, S)
+    g2_sig[:, 0] = sig_col
+    g2 = torch.cat([h_cols, g2_sig, zeros(128, pad)], 1)
+    cell_mask = zeros(1, S)
+    cell_mask[0, 0] = ((sigmask != 0).any() & ~sig_ident).to(torch.int32)
+    lane_mask = torch.cat([setlive, cell_mask, zeros(1, pad)], 1)
+    return g1, g2, lane_mask
+
+
+def fused_pipeline_body(table, idx, kmask, lo, hi, u_planes, sig_cols,
+                        sigmask, setlive, *, K: int, timings=None):
+    """One sub-batch up to its (384, 128) residue-class products, on
+    device tensors: gather of the keys → prepare (c_i·Σ_k pk and the
+    identity flags) → hash-to-G2 → sigma + ``sigma_combine`` (the σ side
+    as one lane e(−G, Σ c_i·σ_i)) → fused Miller+fold over the set lanes
+    and the σ cell, padded to a multiple of 256 → ``product_chunks`` down
+    to 128 lanes (an odd block count padded with Fq12 ONE).  Returns
+    (products, bad): ``bad`` is a 0-dim bool, true when a live set's keys
+    sum to the identity.  Nothing waits for the device unless
+    STAGE_TIMINGS fences the stages into ``timings``."""
+    from . import htc_kernel as HK
+    from . import pairing_kernel as PK
+
+    dev = table.device
+    t0 = time.perf_counter()
+    pk = table.index_select(1, idx)                     # (64, C·K·S)
+    if timings is not None:
+        t0 = _stage_sync(timings, "gather_ms", t0, dev)
+    g1_aggpk, flags = PK.prepare_kernel_call(pk, kmask, lo, hi, K)
+    if timings is not None:
+        t0 = _stage_sync(timings, "prepare_ms", t0, dev)
+    h_cols = HK.hash_g2_kernel_call(u_planes)           # (128, C·S)
+    if timings is not None:
+        t0 = _stage_sync(timings, "htc_ms", t0, dev)
+    partials = PK.sigma_kernel_call(sig_cols, sigmask, lo, hi)
+    if timings is not None:
+        t0 = _stage_sync(timings, "sigma_ms", t0, dev)
+    sig_col, sig_ident = PK.sigma_combine(partials)
+    if timings is not None:
+        t0 = _stage_sync(timings, "sigma_combine_ms", t0, dev)
+
+    prod = PK.miller_fold_kernel_call(*miller_cell(
+        g1_aggpk, h_cols, sig_col, sig_ident, sigmask, setlive))
+    if timings is not None:
+        t0 = _stage_sync(timings, "miller_fold_ms", t0, dev)
+    one_block = _cells_on(str(dev))[1]
+    while prod.shape[1] > PK.LANE_BLOCK:
+        if (prod.shape[1] // PK.LANE_BLOCK) % 2:    # odd block count
+            prod = torch.cat([prod, one_block], 1)
+        ones = torch.ones((1, prod.shape[1]), dtype=torch.int32, device=dev)
+        prod = PK.product_chunks_kernel_call(prod, ones)
+    if timings is not None:
+        _stage_sync(timings, "product_chunks_ms", t0, dev)
+    bad = ((flags != 0) & (setlive != 0)).any()
+    return prod, bad
+
+
+def _combine_verdict(ok, bads):
+    """The batch verdict: the shared finalize said 1 and no sub-batch
+    flagged an identity key sum (a 0-dim bool tensor, not synced)."""
+    return (ok[0, 0] != 0) & ~bads.any()
+
+
+def _dispatch_general(entries, rand_fn) -> bool:
+    """Marshal a batch and run the general device pipeline:
+
+        ∏ e(c_i·aggpk_i, H(m_i)) · e(−G, Σ c_i·σ_i) == 1
+
+    Work splits per :func:`_split_batches` and runs through the staged
+    executor (marshalling of sub-batch i+1 overlaps the copies and device
+    work of sub-batch i).  Every sub-batch's (384, 128) products,
+    concatenated and padded with Fq12 ONE blocks to a power of two, go
+    through ONE finalize; the host reads back a single bool."""
+    from . import pairing_kernel as PK
+    from ..parallel.pipeline import StagedExecutor
+
+    _PK_TABLE.maybe_reset()
+    work = _split_batches(entries)
+    ex = StagedExecutor("bls_pipeline", counter=TRANSFERS)
+    stats = LAST_PIPELINE_STATS
+    stats.clear()
+    timings = stats if STAGE_TIMINGS else None
+
+    def dispatch(staged):
+        (idx, kmask, lo, hi, u, sig, sigmask, setlive, K) = staged
+        # The table after this sub-batch's marshalling registered its
+        # keys; a later sub-batch's columns land after this gather.
+        table = _PK_TABLE.device()
+        return fused_pipeline_body(table, idx, kmask, lo, hi, u, sig,
+                                   sigmask, setlive, K=K, timings=timings)
+
+    results = ex.map(work, lambda batch: _marshal_group(batch, rand_fn),
+                     dispatch)
+    prods = [r[0] for r in results]
+    bads = torch.stack([r[1] for r in results])
+    one_block = _cells_on(str(prods[0].device))[1]
+    prods += [one_block] * (_next_pow2(len(prods)) - len(prods))
+    prod = prods[0] if len(prods) == 1 else torch.cat(prods, 1)
+    t0 = time.perf_counter()
+    ok = PK.finalize_kernel_call(prod)
+    if timings is not None:
+        _stage_sync(timings, "finalize_ms", t0, prod.device)
+    verdict = bool(_combine_verdict(ok, bads))
+    TRANSFERS["d2h"] += 1
+    stats.update(
+        path="cuda_general", sets=len(entries), dispatches=len(work),
+        staging_fallbacks=ex.stats["fallbacks"],
+        host_prep_ms=ex.stats["host_prep_s"] * 1e3,
+        overlap_prep_ms=ex.stats["overlap_prep_s"] * 1e3,
+        stage_ms=ex.stats["stage_s"] * 1e3,
+        overlap_efficiency=ex.overlap_efficiency())
+    return verdict
+
+
 def _dispatch(entries, rand_fn) -> bool:
-    """entries: list of (agg_sig_point, [pubkey points], message bytes);
-    rand_fn() → 64-bit scalar.  Only the shared-key collapse is ported."""
+    """entries: list of (agg_sig_point or None, [pubkey points], message
+    bytes); rand_fn() → 64-bit scalar.  A batch that signs under one
+    (aggregated) key takes the shared path, every other the general one."""
     LAST_FAST_AGG_TIMINGS.clear()
     entries, valid = _dedup_shared_keygroups(entries)
     if not valid:
         return False
     shared_pt = _shared_group_key(entries)
-    if shared_pt is None:
-        raise NotImplementedError(
-            f"this batch ({len(entries)} sets) does not share one signing "
-            f"key list across at least {_shared_min_sets()} sets; "
-            + _GENERAL_PATH)
-    return _dispatch_shared(entries, shared_pt, rand_fn)
+    if shared_pt is not None:
+        return _dispatch_shared(entries, shared_pt, rand_fn)
+    return _dispatch_general(entries, rand_fn)
 
 
 def _rand_nonzero() -> int:
@@ -277,15 +607,16 @@ def _rand_nonzero() -> int:
 
 
 class TpuBackend:
-    """Device-batched verification registered as ``tpu`` in :mod:`.bls`."""
+    """Device-batched verification registered as ``tpu`` in :mod:`.bls`.
+    Every entry raises without a GPU unless the caller set the CPU
+    device."""
 
     name = "tpu"
 
     def verify_signature_sets(self, sets, rand_fn=None) -> bool:
         """RLC batch verify.  ``rand_fn`` (tests and the smoke script
         only) replaces the secret random 64-bit scalars; production calls
-        leave it None.  Raises without a GPU unless the caller set the
-        CPU device."""
+        leave it None."""
         D.get_device()
         if not sets:
             return False
@@ -301,10 +632,27 @@ class TpuBackend:
         return _dispatch(entries, rand_fn=rand_fn or _rand_nonzero)
 
     def verify(self, signature, pubkeys, message) -> bool:
-        raise NotImplementedError("single-set verify: " + _GENERAL_PATH)
+        """One signature over one message under the aggregate of
+        ``pubkeys`` (scalar 1: a single set needs no random combination)."""
+        D.get_device()
+        if signature.point is None or not pubkeys:
+            return False
+        return _dispatch(
+            [(signature.point, [k.point for k in pubkeys], bytes(message))],
+            rand_fn=lambda: 1)
 
     def aggregate_verify(self, signature, pubkeys, messages) -> bool:
-        raise NotImplementedError("aggregate_verify: " + _GENERAL_PATH)
+        """One aggregate signature over distinct messages, one key each:
+        one single-key set per message, the signature on the first set
+        only, every scalar 1 (so the batch is never split)."""
+        D.get_device()
+        if signature.point is None or not pubkeys \
+                or len(pubkeys) != len(messages):
+            return False
+        entries = [(None, [pk.point], bytes(m))
+                   for pk, m in zip(pubkeys, messages)]
+        entries[0] = (signature.point, entries[0][1], entries[0][2])
+        return _dispatch(entries, rand_fn=lambda: 1)
 
 
 def register() -> None:

@@ -1,4 +1,4 @@
-// BLS12-381 kernels of the shared-key batch verify, for Hopper (sm_90a).
+// BLS12-381 kernels of the batch verify, for Hopper (sm_90a).
 //
 // Built by lighthouse_tpu_torch/ops/cuda_build.py into a plain-C shared
 // library and bound with ctypes (lighthouse_tpu_torch/crypto/
@@ -13,6 +13,10 @@
 // lh_miller_fold_kernel    pairing_kernel.py _miller_fold_kernel (:938)
 // lh_finalize_kernel       pairing_kernel.py _finalize_easy_kernel +
 //                          _finalize_hard_kernel (:1165, :1173)
+// lh_prepare_kernel        pairing_kernel.py _prepare_kernel (:1240)
+// lh_product_chunks_kernel pairing_kernel.py _product_chunk_kernel (:877)
+// lh_miller_kernel         pairing_kernel.py _miller_kernel (:781)
+// lh_product_kernel        pairing_kernel.py _product_kernel (:843)
 //
 // What bounds them: integer multiply-adds.  Each is a long chain of
 // 13-word Montgomery products (fp_mul) per lane with a few kilobytes of
@@ -21,7 +25,10 @@
 // are tiny.  This first design is one thread per lane, the reference's
 // formulas in the reference's order, ladders rolled (#pragma unroll 1),
 // tower functions __noinline__ (the state spills to local memory, which
-// L1 caches).  The finalize tail is one serial chain (one thread).
+// L1 caches).  The finalize tail is one serial chain (one thread); the
+// product butterfly runs 128 threads, one per residue class mod 128.
+// product_chunks moves the most bytes per product (two Fq12 in, one out:
+// 4.6 KB per 54 Montgomery products) and is still bound by operations.
 
 #include <cuda_runtime.h>
 
@@ -121,6 +128,61 @@ lh_finalize_kernel(const int32_t* __restrict__ f, Fp12* scratch, int32_t* ok,
   }
 }
 
+// --- prepare: one block per 128-set chunk, a thread per set -----------------
+// Set s of chunk c reads key k at column (c*K + k)*128 + s: the K slots
+// summed from the identity, the identity flag, the 64-bit RLC ladder, and
+// the affine point c_i * aggpk_i (prepare_set).
+__global__ void __launch_bounds__(LANE_BLOCK)
+lh_prepare_kernel(const int32_t* __restrict__ pk,
+                  const int32_t* __restrict__ kmask,
+                  const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
+                  int32_t* __restrict__ out, int32_t* __restrict__ flags,
+                  long long m, int K) {
+  const int tid = threadIdx.x;
+  const long long lane = (long long)blockIdx.x * LANE_BLOCK + tid;
+  const long long col = (long long)blockIdx.x * K * LANE_BLOCK + tid;
+  Fp xa, ya;
+  flags[lane] = prepare_set(pk, kmask, m * K, col, LANE_BLOCK, K,
+                            (uint32_t)lo[lane], (uint32_t)hi[lane], xa, ya);
+  store_fp(out, m, lane, 0, xa);
+  store_fp(out, m, lane, 1, ya);
+}
+
+// --- product_chunks: one block per 256-lane chunk, a thread per output lane --
+// Output lane j of chunk c is the masked f_{c*256+j} * f_{c*256+j+128}.
+__global__ void __launch_bounds__(LANE_BLOCK)
+lh_product_chunks_kernel(const int32_t* __restrict__ f,
+                         const int32_t* __restrict__ mask,
+                         int32_t* __restrict__ out, long long m) {
+  const int tid = threadIdx.x;
+  const long long a = (long long)blockIdx.x * 2 * LANE_BLOCK + tid;
+  const Fp12 fa = fp12_masked(f, mask, m, a);
+  const Fp12 fb = fp12_masked(f, mask, m, a + LANE_BLOCK);
+  store_fp12(out, m / 2, (long long)blockIdx.x * LANE_BLOCK + tid,
+             fp12_mul(fa, fb));
+}
+
+// --- Miller loop alone: one block per 128 lanes, a thread per lane -----------
+__global__ void __launch_bounds__(LANE_BLOCK)
+lh_miller_kernel(const int32_t* __restrict__ g1,
+                 const int32_t* __restrict__ g2, int32_t* __restrict__ out,
+                 long long m) {
+  const long long lane = (long long)blockIdx.x * LANE_BLOCK + threadIdx.x;
+  store_fp12(out, m, lane,
+             miller_loop(load_fp(g1, m, lane, 0), load_fp(g1, m, lane, 1),
+                         load_fp2(g2, m, lane, 0), load_fp2(g2, m, lane, 2)));
+}
+
+// --- product: the roll butterfly, a thread per residue class mod 128 ---------
+// A class never reads another (every roll is a multiple of 128 lanes), so
+// the 128 threads run their classes alone through M-lane global scratch.
+__global__ void __launch_bounds__(LANE_BLOCK)
+lh_product_kernel(const int32_t* __restrict__ f,
+                  const int32_t* __restrict__ mask, Fp12* a, Fp12* b,
+                  int32_t* __restrict__ out, long long m) {
+  product_class(f, mask, a, b, out, m, threadIdx.x);
+}
+
 // --- probe: one Montgomery product per lane ----------------------------------
 __global__ void lh_fp_mul_kernel(const int32_t* __restrict__ a,
                                  const int32_t* __restrict__ b,
@@ -164,6 +226,37 @@ int lh_finalize(const int32_t* f, int32_t* scratch, int32_t* ok, int32_t* g,
                 void* stream) {
   lh_finalize_kernel<<<1, LANE_BLOCK, 0, (cudaStream_t)stream>>>(
       f, reinterpret_cast<Fp12*>(scratch), ok, g);
+  return (int)cudaGetLastError();
+}
+
+int lh_prepare(const int32_t* pk, const int32_t* kmask, const int32_t* lo,
+               const int32_t* hi, int32_t* out, int32_t* flags, long long m,
+               int K, void* stream) {
+  lh_prepare_kernel<<<(unsigned)(m / LANE_BLOCK), LANE_BLOCK, 0,
+                      (cudaStream_t)stream>>>(pk, kmask, lo, hi, out, flags,
+                                              m, K);
+  return (int)cudaGetLastError();
+}
+
+int lh_product_chunks(const int32_t* f, const int32_t* mask, int32_t* out,
+                      long long m, void* stream) {
+  lh_product_chunks_kernel<<<(unsigned)(m / (2 * LANE_BLOCK)), LANE_BLOCK, 0,
+                             (cudaStream_t)stream>>>(f, mask, out, m);
+  return (int)cudaGetLastError();
+}
+
+int lh_miller(const int32_t* g1, const int32_t* g2, int32_t* out, long long m,
+              void* stream) {
+  lh_miller_kernel<<<(unsigned)(m / LANE_BLOCK), LANE_BLOCK, 0,
+                     (cudaStream_t)stream>>>(g1, g2, out, m);
+  return (int)cudaGetLastError();
+}
+
+int lh_product(const int32_t* f, const int32_t* mask, int32_t* scratch,
+               int32_t* out, long long m, void* stream) {
+  Fp12* a = reinterpret_cast<Fp12*>(scratch);
+  lh_product_kernel<<<1, LANE_BLOCK, 0, (cudaStream_t)stream>>>(
+      f, mask, a, a + m, out, m);
   return (int)cudaGetLastError();
 }
 

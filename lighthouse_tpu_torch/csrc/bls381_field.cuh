@@ -40,12 +40,14 @@
 
 #define LH_NW 13
 #define LH_ROWS 32   // rows of one Fq block in the boundary layout
+#define LH_LANES 128  // lanes of one cell (the reference's lane block)
 
 struct Fp { uint32_t w[LH_NW]; };
 struct Fp2 { Fp c0, c1; };
 struct Fp6 { Fp2 c[3]; };
 struct Fp12 { Fp6 c[2]; };
 struct G2P { Fp2 X, Y, Z; };
+struct G1P { Fp X, Y, Z; };
 
 // Uploaded once per process (lh_bls_init); built by pairing_kernel.
 // cuda_consts() field by field in this order.
@@ -389,6 +391,48 @@ LH_FN G2P g2_identity() { return {fp2_zero(), fp2_one(), fp2_zero()}; }
 LH_FN G2P g2_neg(const G2P& p) { return {p.X, fp2_neg(p.Y), p.Z}; }
 
 // ---------------------------------------------------------------------------
+// G1, the same law over Fq (b3 = 3*4): the reference's _G1ops + point_add
+// ---------------------------------------------------------------------------
+
+LH_FN Fp g1_b3(const Fp& t) { return fp_muls(t, 12); }
+
+LH_NI G1P g1_add(const G1P& p, const G1P& q) {
+  Fp t0 = fp_mul(p.X, q.X);
+  Fp t1 = fp_mul(p.Y, q.Y);
+  Fp t2 = fp_mul(p.Z, q.Z);
+  Fp pxy = fp_mul(fp_add(p.X, p.Y), fp_add(q.X, q.Y));
+  Fp pyz = fp_mul(fp_add(p.Y, p.Z), fp_add(q.Y, q.Z));
+  Fp pxz = fp_mul(fp_add(p.X, p.Z), fp_add(q.X, q.Z));
+  Fp s3 = fp_sub(pxy, fp_add(t0, t1));
+  Fp s4 = fp_sub(pyz, fp_add(t1, t2));
+  Fp s5 = fp_sub(pxz, fp_add(t0, t2));
+  Fp b3t2 = g1_b3(t2);
+  Fp um = fp_sub(t1, b3t2);
+  Fp up = fp_add(t1, b3t2);
+  G1P r;
+  r.X = fp_sub(fp_mul(s3, um), g1_b3(fp_mul(s4, s5)));
+  r.Y = fp_add(fp_mul(up, um), fp_muls(g1_b3(fp_mul(t0, s5)), 3));
+  r.Z = fp_add(fp_mul(s4, up), fp_muls(fp_mul(t0, s3), 3));
+  return r;
+}
+
+LH_FN G1P g1_identity() { return {fp_zero(), KC.ONE, fp_zero()}; }
+
+// LSB-first 64-bit double-and-add (scalar_mul), as sigma_ladder does it.
+LH_NI G1P g1_ladder(const G1P& p, uint32_t lo, uint32_t hi) {
+  G1P acc = g1_identity();
+  G1P base = p;
+#pragma unroll 1
+  for (int i = 0; i < 64; ++i) {
+    uint32_t bit = ((i < 32 ? lo : hi) >> (i & 31)) & 1u;
+    G1P added = g1_add(acc, base);
+    if (bit) acc = added;
+    base = g1_add(base, base);
+  }
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
 // Boundary layout: block k of a (rows, M) int32 plane, 16-bit limbs
 // ---------------------------------------------------------------------------
 
@@ -661,4 +705,62 @@ LH_NI void hash_finish(const G2P& q0, const G2P& q1, Fp2& xa, Fp2& ya) {
   Fp2 zi = fp2_inv(p.Z);
   xa = fp2_mul(p.X, zi);
   ya = fp2_mul(p.Y, zi);
+}
+
+// --- the general batch verify -----------------------------------------------
+
+// Prepare, one set: its K key slots summed in k order from the identity
+// (a masked slot adds the identity), the identity flag of the sum, the
+// RLC ladder, then affine by Fermat.  inv(0) = 0, so a set whose sum is
+// the identity, and a dead lane, come out as (0, 0) with flag 1.  ``col``
+// is the column of key 0, ``stride`` the step between keys, ``mk`` the
+// key plane's width.
+LH_FN int prepare_set(const int32_t* pk, const int32_t* kmask, long long mk,
+                      long long col, long long stride, int K, uint32_t lo,
+                      uint32_t hi, Fp& xa, Fp& ya) {
+  G1P acc = g1_identity();
+#pragma unroll 1
+  for (int k = 0; k < K; ++k, col += stride) {
+    G1P blk = g1_identity();
+    if (kmask[col] != 0)
+      blk = {load_fp(pk, mk, col, 0), load_fp(pk, mk, col, 1), KC.ONE};
+    acc = g1_add(acc, blk);
+  }
+  const int flag = fp_is_zero(acc.Z) ? 1 : 0;
+  const G1P s = g1_ladder(acc, lo, hi);
+  const Fp zi = fp_inv(s.Z);
+  xa = fp_mul(s.X, zi);
+  ya = fp_mul(s.Y, zi);
+  return flag;
+}
+
+// Lane ``lane`` of an Fq12 plane, or 1 where the mask is 0.
+LH_FN Fp12 fp12_masked(const int32_t* f, const int32_t* mask, long long m,
+                       long long lane) {
+  return mask[lane] != 0 ? load_fp12(f, m, lane) : fp12_one();
+}
+
+// The roll butterfly over residue class t of an M-lane plane: lanes t +
+// 128r, r < R = M/128.  Step w = 128v (v = R/2 ... 1) multiplies lane j by
+// lane (j + w) mod M, every lane from the previous step's values, so a
+// class never reads another class.  ``a`` and ``b`` are M-lane scratch.
+LH_FN void product_class(const int32_t* f, const int32_t* mask, Fp12* a,
+                         Fp12* b, int32_t* out, long long m, int t) {
+  const long long R = m / LH_LANES;
+#pragma unroll 1
+  for (long long r = 0; r < R; ++r)
+    a[r * LH_LANES + t] = fp12_masked(f, mask, m, r * LH_LANES + t);
+#pragma unroll 1
+  for (long long v = R / 2; v >= 1; v >>= 1) {
+#pragma unroll 1
+    for (long long r = 0; r < R; ++r)
+      b[r * LH_LANES + t] = fp12_mul(a[r * LH_LANES + t],
+                                     a[((r + v) & (R - 1)) * LH_LANES + t]);
+    Fp12* tmp = a;
+    a = b;
+    b = tmp;
+  }
+#pragma unroll 1
+  for (long long r = 0; r < R; ++r)
+    store_fp12(out, m, r * LH_LANES + t, a[r * LH_LANES + t]);
 }

@@ -94,6 +94,23 @@ def to_device(arr, counter: dict) -> torch.Tensor:
     return torch.from_numpy(arr).to(get_device(), copy=True)
 
 
+def to_device_async(arr, counter: dict) -> torch.Tensor:
+    """Like :func:`to_device`, without waiting on a GPU: the array is
+    copied into pinned host memory and from there to the device with
+    ``non_blocking=True`` on the current stream (PyTorch's pinned-memory
+    allocator keeps the pinned buffer until that copy has run).  On the
+    CPU device it is :func:`to_device`."""
+    dev = get_device()
+    if dev.type != "cuda":
+        return to_device(arr, counter)
+    arr = np.ascontiguousarray(arr)
+    view = _SIGNED_VIEW.get(arr.dtype)
+    if view is not None:
+        arr = arr.view(view)
+    counter["h2d"] += arr.nbytes
+    return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
+
+
 def to_host(t: torch.Tensor, counter: dict) -> np.ndarray:
     """Copy a device tensor to a fresh host array; int32/int64 come back
     as the u32/u64 bit patterns they hold."""

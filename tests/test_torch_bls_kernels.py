@@ -133,8 +133,11 @@ def test_finalize_plain_matches_host_final_exponentiation(miller_cell):
     one_block = prod.clone()
     one_block[:, 1] = one_block[:, 2]                   # lane 1 → 1
     assert int(PK.finalize_kernel_call(one_block)) == 1
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        PK.finalize_kernel_call(torch.zeros((384, 2 * S), dtype=torch.int32))
+    # 256 lanes (the block of 1s beside it) fold to the same product
+    one = torch.from_numpy(TB._ONE_BLOCK.view(np.int32))
+    ok, g256 = PK.finalize_kernel_call(torch.cat([prod, one], 1),
+                                       with_value=True)
+    assert int(ok) == 0 and _fq12_of(g256, 0) == want
 
 
 def test_each_build_hashes_only_the_headers_it_includes(tmp_path,

@@ -3,8 +3,9 @@
 Marshalling is byte for byte the JAX package's; the whole slice (8 sets
 under the same 5 keys, ``fast_aggregate_verify``'s shape) gives the JAX
 package's ``PythonBackend`` verdict for the valid batch and for each
-tamper class, and a batch under distinct keys raises, naming the general
-path that slice 3 ports.
+tamper class; batches off the shared path (distinct keys, fewer than
+``LIGHTHOUSE_TPU_SHARED_MIN`` sets) verify on the general path, and the
+default entry raises without a GPU.
 """
 
 import numpy as np
@@ -129,26 +130,36 @@ def test_missing_signature_and_empty_batch_fail(batch):
 
 
 def test_batches_off_the_shared_path_raise(batch):
+    """Batches off the shared path no longer raise: each verifies on the
+    general path with ``PythonBackend``'s verdict — 8 sets under distinct
+    single keys (the signatures belong to the 5-key sum, so False), and 4
+    sets under the shared 5 keys, fewer than SHARED_MIN (True)."""
     distinct = [bls.SignatureSet(s.signature, [s.signing_keys[i % N_KEYS]],
                                  s.message) for i, s in enumerate(batch)]
     backend = TB.TpuBackend()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        backend.verify_signature_sets(distinct)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        backend.verify_signature_sets(batch[:4])          # < SHARED_MIN
+    assert backend.verify_signature_sets(distinct, rand_fn=_rand(3)) \
+        is _python_verdict(distinct) is False
+    assert TB.LAST_PIPELINE_STATS["path"] == "cuda_general"
+    assert backend.verify_signature_sets(batch[:4], rand_fn=_rand(4)) \
+        is _python_verdict(batch[:4]) is True              # < SHARED_MIN
+    assert TB.LAST_PIPELINE_STATS["sets"] == 4
     assert bls._BACKENDS["tpu"].name == "tpu"
 
 
 def test_default_entry_is_the_device_backend(batch, monkeypatch):
     """``bls.verify_signature_sets`` runs on the ``tpu`` backend unless a
-    caller selects another: off the shared path it raises, and without a
-    GPU (the default device ``cuda``) it raises before any verifying."""
+    caller selects another: off the shared path it takes the general
+    path, and without a GPU (the default device ``cuda``) it raises
+    before any verifying."""
     monkeypatch.setattr(bls, "_active", None)
     assert bls.get_backend() is bls._BACKENDS["tpu"]
     distinct = [bls.SignatureSet(s.signature, [s.signing_keys[i % N_KEYS]],
                                  s.message) for i, s in enumerate(batch)]
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        bls.verify_signature_sets(distinct)
+    routed = []
+    monkeypatch.setattr(TB, "_dispatch_general",
+                        lambda entries, rand_fn: routed.append(entries) or True)
+    assert bls.verify_signature_sets(distinct) is True
+    assert [e[2] for e in routed[0]] == [s.message for s in distinct]
     device.set_default_device("cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     called = []
