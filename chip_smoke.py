@@ -29,18 +29,23 @@ Phases, each of which fails the run with a non-zero exit:
 5. The BLS kernels (``csrc/bls381.cu``) against their plain PyTorch
    versions on the card, at the shared verify path's shapes: hash-to-G2
    on 2 cells (512 u lanes), sigma on 2 chunks (the path's signature
-   columns, and random live/dead lanes with an all-dead chunk), Miller+
-   fold on one 256-lane cell with every lane live and with the path's 2
-   live lanes, finalize on a product that is 1 and on one that is not.
-   Outputs agree limb for limb and the verdict exactly; 4 hash columns
-   match the host ``hash_to_g2``.  Each kernel is timed with CUDA events
-   beside its plain version and its bound.
+   columns, and random live/dead lanes with an all-dead chunk),
+   sigma_combine on the path's two partials side by side and with an
+   all-dead partial, Miller+fold on one 256-lane cell with every lane
+   live and with the path's 2 live lanes, finalize on a product that is
+   1 and on one that is not.  Outputs agree limb for limb and the
+   verdict exactly; 4 hash columns match the host ``hash_to_g2``.  A
+   probe times one thread's chain of dependent Montgomery products: the
+   latency of one prices the chain bound of sigma_combine and finalize,
+   which are single dependent chains.  Each kernel is timed with CUDA
+   events beside its plain version and its bounds.
 6. ``verify_signature_sets`` of the port's default (``tpu``) backend on the
    sync-committee shape (512 shared keys × 256 messages, built like
    ``bench.py``): the valid batch verifies, a swapped signature and an
    altered message fail.  The BLS launch counters are zeroed just before
-   and must be > 0 just after; the wall time, the stage split and the
-   device idle share are printed.
+   and must be > 0 just after; the wall time, the stage split, the
+   device idle share and the CUDA kernels launched (torch.profiler) are
+   printed.
 7. The general path's kernels against their plain versions on the card,
    limb for limb, at its shapes: prepare on BASELINE row 1's marshalled
    batch (K = 16, C = 8) and again with masked key slots, a set whose
@@ -48,17 +53,20 @@ Phases, each of which fails the run with a non-zero exit:
    product_chunks on 640 lanes padded with a ONE block (768), with and
    without a mask; product at 512 lanes; finalize at 256 and 512 lanes;
    and PR 2's kernels at this path's shapes: hash-to-G2 on 8 cells,
-   sigma on C = 8, Miller+fold on the padded 1280-lane cell (1025 live).
+   sigma on C = 8, sigma_combine on its C = 8 partial and on an all-dead
+   one, Miller+fold on the padded 1280-lane cell (1025 live).
    A few lanes of each match the host curve, Fq12 and pairing oracles.
 8. BASELINE row 1 on the general path (``bench.py:154-177``): 1024 sets
    × 16 keys (secret key 0x10000 + 7v), 64 messages.  The valid batch
    verifies from an empty pubkey table (cold; launch counts zeroed just
-   before and read just after: prepare 1, miller_fold 1, product_chunks
-   3, finalize 1); bench's key swap, a wrong signature, an altered
-   message and a set whose keys sum to the identity fail; then 5 warm
-   walls, the fenced stage split and the idle share under
-   ``torch.profiler``; then the same batch in two sub-batches of 512
-   (``LIGHTHOUSE_TPU_PIPELINE_SETS=512``), valid and key-swapped.
+   before and read just after: prepare 1, sigma_combine 1, miller_fold
+   1, product_chunks 3, finalize 1); bench's key swap, a wrong
+   signature, an altered message and a set whose keys sum to the
+   identity fail; then 5 warm walls, one host sync per warm call, the
+   fenced stage split, and the idle share and the CUDA kernel launches
+   (fewer than 200) under ``torch.profiler``; then the same batch in two
+   sub-batches of 512 (``LIGHTHOUSE_TPU_PIPELINE_SETS=512``, 2
+   sigma_combine launches), valid and key-swapped.
 9. A mainnet block's batch through the multi-K route: 128 attestation
    aggregates of ~90% of 512-member committees, a sync aggregate of ~460
    of 512 keys, the proposer's block and randao sets.  Two work items
@@ -70,7 +78,8 @@ Phases, each of which fails the run with a non-zero exit:
     with its launches counted and its time printed.
 
 The line before the last is one JSON object with each kernel's launches,
-error, time, plain-version time and bound; the last line is
+error, time, plain-version time and bound (for sigma_combine and
+finalize also their chain bound); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing a result.
 """
@@ -102,7 +111,10 @@ BLOCK_AGGREGATES = 128        # attestation aggregates in a mainnet block
 COMMITTEE = 512               # 2^20 validators / (32 slots × 64 committees)
 PARTICIPATION = 0.9
 SYNC_PARTICIPATION = 460 / 512
-SHARED_PATH_KERNELS = ("hash_g2", "sigma", "miller_fold", "finalize")
+SHARED_PATH_KERNELS = ("hash_g2", "sigma", "sigma_combine", "miller_fold",
+                       "finalize")
+CHAIN_SHORT, CHAIN_LONG = 1000, 21000   # dependent products of the probe
+MAX_WARM_LAUNCHES = 200       # CUDA kernels per warm general verify
 KERNEL_N = 1 << 20            # hash64 pairs / sub-tree leaves timed
 TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -178,13 +190,15 @@ def phase_build(torch, mk, pk, cuda_build) -> dict:
     print(f"SASS instructions (non-NOP): {json.dumps(sass)}")
     check("lh_hash64_kernel" in sass and sass["lh_hash64_kernel"] > 1000,
           f"cannot read the hash64 kernel's SASS: {sass}")
-    mul_fns = [k for k in sass if "fp_mul" in k and not k.startswith("lh_")]
-    instr_per_mont = (sass[mul_fns[0]] if mul_fns
-                      else sass.get("lh_fp_mul_kernel", 0))
+    # fp_mul's own section if it has one, else the one-product probe
+    # kernel (its loads and stores included), never another kernel
+    priced = next((k for k in sass if "fp_mul" in k and "lh_" not in k),
+                  next((k for k in sass if "lh_fp_mul_kernel" in k), None))
+    instr_per_mont = sass.get(priced, 0)
     check(instr_per_mont > 100,
           f"cannot price a Montgomery product from SASS: {sass}")
     print(f"SASS instructions per Montgomery product: {instr_per_mont} "
-          f"({mul_fns[0] if mul_fns else 'lh_fp_mul_kernel'})")
+          f"({priced})")
     clk_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"max SM clock {clk_mhz:.0f} MHz, {sms} SMs")
@@ -629,6 +643,91 @@ def mont_bound_ms(hw: dict, products: int) -> float:
         INT32_LANES_PER_SM * hw["sms"] * hw["clk_hz"]) * 1e3
 
 
+def chain_products(PK, C=None) -> int:
+    """The critical path in dependent Montgomery products, where the
+    independent products of one tower step count as one, worked out from
+    the kernels' formulas (csrc/bls381_field.cuh).  The Fermat ladder
+    a^(p-2) is one product per bit plus one per set bit; an RCB point
+    addition is two steps; f^|x| one step per bit and set bit.
+
+    C given, ``sigma_combine`` of C chunks: C - 1 additions, then
+    fp2_inv (the squares, the ladder, the two products) and the affine
+    products.  Else the finalize: the 7 levels of the 128 -> 1 fold; the
+    easy part (Fq6 squares, in fp6_inv two Fq2 waves, the squares, the
+    ladder, the products, one Fq2 wave, then the Fq6 products, conj·inv,
+    the Frobenius, one product: 10 steps and the ladder); the hard part
+    (five f^u and six products, the Frobenius maps and m^3 beside them)."""
+    ladder = len(PK.P_MINUS_2_BITS) + int(sum(PK.P_MINUS_2_BITS))
+    if C is not None:
+        return 2 * (C - 1) + 1 + ladder + 1 + 1
+    pow_u = len(PK.X_BITS_FULL) + int(sum(PK.X_BITS_FULL))
+    fold = PK.LANE_BLOCK.bit_length() - 1
+    return fold + (10 + ladder) + (5 * pow_u + 6)
+
+
+def bounds(hw: dict, products: int, nbytes: int = 0, chain=None) -> dict:
+    """The rate bound (operations over the INT32 issue rate, or bytes
+    over the memory rate, whichever is larger) and, for a kernel that is
+    one dependent chain, its chain bound: the critical path in products
+    times the measured latency of one dependent product."""
+    ops_ms = mont_bound_ms(hw, products)
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"bound_ms": max(ops_ms, mem_ms),
+           "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+           "products": products}
+    if chain is not None:
+        out.update(chain_products=chain,
+                   chain_bound_ms=chain * hw["mont_latency_ms"],
+                   rate_bound_ms=out["bound_ms"])
+        out["binds"] = ("chain" if out["chain_bound_ms"] > out["bound_ms"]
+                        else "rate")
+    return out
+
+
+def bound_note(t: dict) -> str:
+    if "chain_bound_ms" not in t:
+        return f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+    return (f"rate bound {t['rate_bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"chain bound {t['chain_bound_ms']:.4f} ms ({t['chain_products']}"
+            f" dependent products), the {t['binds']} bound binds")
+
+
+def probe_product_latency(torch, PK, hw: dict) -> None:
+    """One thread's chain of dependent Montgomery products, checked
+    against the plain chain, then timed at two lengths: the difference
+    over the extra products is the latency of one (it prices the chain
+    bounds)."""
+    from lighthouse_tpu_torch.crypto import fields as F
+    from lighthouse_tpu_torch.crypto import limb_field as LF
+    xy = rand_planes(torch, np.random.default_rng(SEED + 7), F, LF, 1, 2)
+    check(torch.equal(PK.fp_mul_chain_kernel(xy, 64),
+                      PK.fp_mul_chain_plain(xy, 64)),
+          "fp_mul chain kernel != plain (raw limbs)")
+    short = cuda_ms(torch, lambda: PK.fp_mul_chain_kernel(xy, CHAIN_SHORT), 5)
+    long_ = cuda_ms(torch, lambda: PK.fp_mul_chain_kernel(xy, CHAIN_LONG), 5)
+    hw["mont_latency_ms"] = (long_ - short) / (CHAIN_LONG - CHAIN_SHORT)
+    print(f"dependent Montgomery product latency: "
+          f"{hw['mont_latency_ms'] * 1e3:.4f} us "
+          f"({hw['mont_latency_ms'] * 1e-3 * hw['clk_hz']:.0f} cycles at the "
+          f"max SM clock; chains of {CHAIN_SHORT} and {CHAIN_LONG} on one "
+          f"thread: {short:.3f} and {long_:.3f} ms; raw equal to the plain "
+          f"chain of 64) [{hw['card']}]")
+
+
+def combine_err(torch, PK, args) -> int:
+    """Raw limbs of ``sigma_combine`` (the kernel) against
+    ``sigma_combine_plain`` on the same partials; the flags exactly."""
+    got, want = PK.sigma_combine(*args), PK.sigma_combine_plain(*args)
+    if len(args) == 1:
+        got, want = [got], [want]
+    err = 0
+    for (g_col, g_flag), (w_col, w_flag) in zip(got, want):
+        check(bool(g_flag) == bool(w_flag), "sigma_combine identity flag "
+                                            "!= plain")
+        err = max(err, max_abs_err(torch, g_col, w_col))
+    return err
+
+
 def build_bls_batch(bls, F, rng):
     """The sync-committee batch of ``bench.py``: BLS_KEYS keys from a
     seed, BLS_MSGS messages, each signed by the summed secret key."""
@@ -699,17 +798,19 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     want = PK.mont_mul(a[:26].long(), b[:26].long())
     check(torch.equal(PK.fp_mul_kernel(a, b)[:26].long(), want),
           "fp_mul kernel != plain mont_mul (raw limbs)")
+    probe_product_latency(torch, PK, hw)
 
-    def record(name, kern, plain, products, shape, note=""):
+    def record(name, kern, plain, products, shape, chain=None):
         k_ms = cuda_ms(torch, kern, BLS_TIMED_RUNS)
         p_ms = cuda_ms(torch, plain, 1)
-        b_ms = mont_bound_ms(hw, products)
-        timing[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_by": "operations", "products": products}
+        t = {"ms": k_ms, "plain_ms": p_ms, **bounds(hw, products,
+                                                    chain=chain)}
+        timing[name] = t
+        best = max(t["bound_ms"], t.get("chain_bound_ms", 0.0))
         print(f"{name}: {k_ms:.3f} ms kernel (median of {BLS_TIMED_RUNS}), "
-              f"{p_ms:.1f} ms plain, bound {b_ms:.4f} ms ({products} "
-              f"Montgomery products × {hw['instr_per_mont']} instr){note} "
-              f"-> {100 * b_ms / k_ms:.2f}% of bound, {shape} "
+              f"{p_ms:.1f} ms plain, {bound_note(t)} ({products} Montgomery "
+              f"products × {hw['instr_per_mont']} instr) -> "
+              f"{100 * best / k_ms:.2f}% of the binding bound, {shape} "
               f"[{hw['card']}]")
 
     # hash to G2: 2 cells, the path's 256 messages
@@ -753,11 +854,29 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
                                                      hi_d)),
            f"sig {tuple(sig_cols.shape)}, the path's columns")
 
+    # sigma_combine as the shared path calls it (the H and σ partials side
+    # by side), and with an all-dead partial (its sum is the identity)
+    h_part = PK.sigma_kernel_call(h_k, live, lo_d, hi_d)
+    s_part = PK.sigma_kernel_call(sig_cols, smask, lo_d, hi_d)
+    zeros = torch.zeros_like(lo_d)
+    dead_part = PK.sigma_kernel_call(sig_cols, zeros, zeros, zeros)
+    errs["sigma_combine"] = max(combine_err(torch, PK, args) for args in (
+        (h_part, s_part), (dead_part,), (s_part, dead_part)))
+    check(errs["sigma_combine"] == 0, "sigma_combine kernel != plain "
+                                      "(raw limbs)")
+    d_col, d_id = PK.sigma_combine(dead_part)
+    check(bool(d_id) and not bool(d_col.any()),
+          "sigma_combine of an all-dead partial: want flag 1 and zeros")
+    n_chunks = h_part.shape[1] // S
+    record("sigma_combine", lambda: PK.sigma_combine(h_part, s_part),
+           lambda: PK.sigma_combine_plain(h_part, s_part),
+           plain_products(PK, lambda: PK.sigma_combine_plain(h_part,
+                                                             s_part)),
+           f"two partials of C={n_chunks}",
+           chain=chain_products(PK, n_chunks))
+
     # the path's Miller cell, then one with every lane live
-    h_col, h_id = PK.sigma_combine(PK.sigma_kernel_call(h_k, live, lo_d,
-                                                        hi_d))
-    s_col, s_id = PK.sigma_combine(PK.sigma_kernel_call(sig_cols, smask,
-                                                        lo_d, hi_d))
+    (h_col, h_id), (s_col, s_id) = PK.sigma_combine(h_part, s_part)
     g2 = torch.zeros((128, 2 * S), dtype=torch.int32, device=dev)
     g2[:, 0], g2[:, 1] = h_col, s_col
     mask = torch.zeros((1, 2 * S), dtype=torch.int32, device=dev)
@@ -802,8 +921,7 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     record("finalize", lambda: PK.finalize_kernel_call(prod),
            lambda: PK.finalize_plain(prod),
            plain_products(PK, lambda: PK.finalize_plain(prod)),
-           "(384, 128)", note="; one serial chain (one thread), so the "
-           "rate bound is far below its latency")
+           "(384, 128)", chain=chain_products(PK))
     print(f"BLS kernels vs plain on the card: raw limbs equal {errs}; "
           f"finalize verdicts exact; 4 hash columns match the host "
           f"hash_to_g2")
@@ -814,7 +932,7 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
 # Phase 6: verify_signature_sets at 512 keys × 256 messages
 # ---------------------------------------------------------------------------
 
-def phase_bls_verify(torch, hw: dict, sets, rand_fn) -> dict:
+def phase_bls_verify(torch, hw: dict, sets, rand_fn, kernel_ms) -> dict:
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto import htc_kernel as HK
     from lighthouse_tpu_torch.crypto import pairing_kernel as PK
@@ -857,9 +975,10 @@ def phase_bls_verify(torch, hw: dict, sets, rand_fn) -> dict:
         {k: (round(v, 2) if isinstance(v, float) else v)
          for k, v in stages.items()}) + f" [{hw['card']}]")
     prof = profile_call(torch, hw, "verify", lambda:
-                        backend.verify_signature_sets(sets, rand_fn=rand_fn))
+                        backend.verify_signature_sets(sets, rand_fn=rand_fn),
+                        kernel_ms)
     return {"launches": launches, "wall_ms": walls, "stages": stages,
-            "busy_ms": prof["busy_ms"]}
+            "profile": prof}
 
 
 # ---------------------------------------------------------------------------
@@ -1057,20 +1176,18 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     kmask_d, lo_d, hi_d = dev32(kmask), dev32(lo), dev32(hi)
     errs, timing = {}, {}
 
-    def record(name, kern, plain, products, nbytes, shape):
+    def record(name, kern, plain, products, nbytes, shape, chain=None):
         k_ms = cuda_ms(torch, kern, BLS_TIMED_RUNS)
         p_ms = cuda_ms(torch, plain, 1)
-        ops_ms = mont_bound_ms(hw, products)
-        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ms = max(ops_ms, mem_ms)
-        by = "operations" if ops_ms >= mem_ms else "bytes"
-        timing[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_by": by, "products": products,
-                        "bytes": nbytes}
+        t = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes,
+             **bounds(hw, products, nbytes, chain)}
+        timing[name] = t
+        best = max(t["bound_ms"], t.get("chain_bound_ms", 0.0))
         print(f"{name}: {k_ms:.3f} ms kernel (median of {BLS_TIMED_RUNS}), "
-              f"{p_ms:.1f} ms plain, bound {b_ms:.4f} ms ({by}; {products} "
-              f"Montgomery products, {nbytes} B) -> "
-              f"{100 * b_ms / k_ms:.2f}% of bound, {shape} [{hw['card']}]")
+              f"{p_ms:.1f} ms plain, {bound_note(t)}; {products} "
+              f"Montgomery products, {nbytes} B -> "
+              f"{100 * best / k_ms:.2f}% of the binding bound, {shape} "
+              f"[{hw['card']}]")
 
     def compare_once(name, kern, plain, ins, shape) -> int:
         """Raw limbs of one kernel call against one plain call on the
@@ -1091,6 +1208,7 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
         nbytes = 4 * (sum(x.numel() for x in ins) + want.numel())
         ops_ms = mont_bound_ms(hw, products)
         b_ms = max(ops_ms, nbytes / HBM_BYTES_PER_S * 1e3)
+        timing[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
         print(f"{name} at the general path's shape: raw max abs err {err}; "
               f"{k_ms:.3f} ms kernel (median of {BLS_TIMED_RUNS}), "
               f"{p_ms:.1f} ms plain (one run), bound {b_ms:.4f} ms "
@@ -1159,6 +1277,23 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     check(width == -(-(GEN_SETS + S) // (2 * S)) * 2 * S
           and n_live == GEN_SETS + 1,
           f"Miller cell of {width} lanes with {n_live} live")
+    # sigma_combine at C = 8 (one partial, as fused_pipeline_body calls
+    # it), and an all-dead partial of the same width
+    part = PK.sigma_kernel_call(sig_d, smask_d, lo_d, hi_d)
+    zeros = torch.zeros_like(lo_d)
+    dead_part = PK.sigma_kernel_call(sig_d, zeros, zeros, zeros)
+    errs["sigma_combine"] = max(combine_err(torch, PK, (p,))
+                                for p in (part, dead_part))
+    check(errs["sigma_combine"] == 0, "sigma_combine kernel != plain at "
+                                      "C=8 (raw limbs)")
+    check(bool(PK.sigma_combine(dead_part)[1]),
+          "sigma_combine of an all-dead C=8 partial is not the identity")
+    n_chunks = part.shape[1] // S
+    record("sigma_combine", lambda: PK.sigma_combine(part),
+           lambda: PK.sigma_combine_plain(part),
+           plain_products(PK, lambda: PK.sigma_combine_plain(part)),
+           4 * (part.numel() + 129), f"one partial, C={n_chunks}",
+           chain=chain_products(PK, n_chunks))
     for name, kern, plain, ins, shape in (
             ("hash_g2", HK.hash_g2_kernel_call, HK.hash_g2_plain, (u_d,),
              f"u {tuple(u_d.shape)}"),
@@ -1250,7 +1385,8 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
         f_ms = cuda_ms(torch, lambda: PK.finalize_kernel_call(fin),
                        BLS_TIMED_RUNS)
         print(f"finalize at {lanes} lanes: {f_ms:.3f} ms (median of "
-              f"{BLS_TIMED_RUNS}) [{hw['card']}]")
+              f"{BLS_TIMED_RUNS}; {lanes // 128 - 1} product_chunks "
+              f"launches ahead of the kernel) [{hw['card']}]")
     check(err == 0, "widened finalize kernel != plain (raw limbs)")
     errs["finalize_wide"] = err
     print(f"general-path kernels vs plain on the card: raw limbs equal "
@@ -1263,24 +1399,59 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
 # Phase 8: BASELINE row 1 on the general path
 # ---------------------------------------------------------------------------
 
-def profile_call(torch, hw: dict, label: str, fn) -> dict:
+def profile_call(torch, hw: dict, label: str, fn, kernel_ms=None) -> dict:
     """One call under torch.profiler: wall, device busy time, idle share,
-    the top device ops."""
+    the CUDA kernels launched (device events other than copies and
+    memsets), the top device ops.
+
+    Late in this long process the trace has been seen to miss the first
+    port kernels of a call (the first ~50 ms of a verify's ctypes
+    launches; a fresh process records them all).  The port's launch
+    counters are exact, so the port kernels the trace lacks are added to
+    the kernel count, and their time at ``kernel_ms`` (name → median ms
+    of that kernel on this card, phases 5 and 7) to the busy time; the
+    correction is printed."""
     from torch.profiler import ProfilerActivity, profile
 
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+
+    before = {**HK.LAUNCHES, **PK.LAUNCHES}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = timed(torch, fn)
+    launched = {k: v - before[k] for k, v in {**HK.LAUNCHES,
+                                              **PK.LAUNCHES}.items()}
     devt = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), reverse=True)
-    busy = sum(d for d, _c, _k in devt) / 1e3
+    traced_busy = sum(d for d, _c, _k in devt) / 1e3
+    copies = sum(c for _d, c, k in devt if k.startswith(("Memcpy", "Memset")))
+    traced = {}
+    for _d, c, k in devt:                  # "lh_<name>_kernel(...)"
+        if k.startswith("lh_"):
+            name = k.split("(")[0][3:].removesuffix("_kernel")
+            traced[name] = traced.get(name, 0) + c
+    missed = {k: n - traced.get(k, 0) for k, n in launched.items()
+              if n > traced.get(k, 0)}
+    kernel_ms = kernel_ms or {}
+    unpriced = sorted(k for k in missed if k not in kernel_ms)
+    check(not unpriced, f"profile {label}: the trace missed {unpriced} "
+                        f"and no kernel time prices them")
+    added = sum(n * kernel_ms[k] for k, n in missed.items())
+    busy = traced_busy + added
+    kernels = sum(c for _d, c, _k in devt) - copies + sum(missed.values())
+    note = "" if not missed else (
+        f" ({traced_busy:.3f} traced + {added:.3f} for the port launches "
+        f"the trace missed: {missed}, at their kernel medians)")
     print(f"profile {label}: wall {wall:.1f} ms (under the profiler), "
-          f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f} "
-          f"[{hw['card']}]")
+          f"device busy {busy:.3f} ms{note}, idle share "
+          f"{1 - busy / wall:.4f}, {kernels} CUDA kernel launches and "
+          f"{copies} copies/memsets [{hw['card']}]")
     print("  device: " + "; ".join(f"{k} x{c} {d / 1e3:.3f} ms"
                                    for d, c, k in devt[:8]))
-    return {"wall_ms": wall, "busy_ms": busy}
+    return {"wall_ms": wall, "busy_ms": busy, "kernels": kernels,
+            "copies": copies, "missed": missed}
 
 
 def verify_in_two_sub_batches(torch, hw: dict, backend, sets, swapped,
@@ -1301,8 +1472,9 @@ def verify_in_two_sub_batches(torch, hw: dict, backend, sets, swapped,
         launches = {**HK.LAUNCHES, **PK.LAUNCHES}
         stats = dict(TB.LAST_PIPELINE_STATS)
         check(ok is True, "the valid batch in two sub-batches did not verify")
-        want = {"prepare": 2, "hash_g2": 2, "sigma": 2, "miller_fold": 2,
-                "product_chunks": 5, "finalize": 1, "miller": 0, "product": 0}
+        want = {"prepare": 2, "hash_g2": 2, "sigma": 2, "sigma_combine": 2,
+                "miller_fold": 2, "product_chunks": 5, "finalize": 1,
+                "miller": 0, "product": 0}
         check(launches == want and stats["dispatches"] == 2,
               f"split launches {launches}, dispatches {stats['dispatches']}; "
               f"want {want} and 2")
@@ -1317,7 +1489,7 @@ def verify_in_two_sub_batches(torch, hw: dict, backend, sets, swapped,
           f"{stats['overlap_efficiency']} [{hw['card']}]")
 
 
-def phase_general_verify(torch, hw: dict, sets, rand_fn) -> dict:
+def phase_general_verify(torch, hw: dict, sets, rand_fn, kernel_ms) -> dict:
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto import curve as C
     from lighthouse_tpu_torch.crypto import htc_kernel as HK
@@ -1357,8 +1529,9 @@ def phase_general_verify(torch, hw: dict, sets, rand_fn) -> dict:
           f"the batch took {TB.LAST_PIPELINE_STATS.get('path')}")
     print(f"general verify main-path launches (one call): {launches} "
           f"[{hw['card']}]")
-    want = {"prepare": 1, "hash_g2": 1, "sigma": 1, "miller_fold": 1,
-            "product_chunks": 3, "finalize": 1, "miller": 0, "product": 0}
+    want = {"prepare": 1, "hash_g2": 1, "sigma": 1, "sigma_combine": 1,
+            "miller_fold": 1, "product_chunks": 3, "finalize": 1, "miller": 0,
+            "product": 0}
     check(launches == want, f"launches {launches} != {want}")
     print(f"verify 1024 sets × 16 keys: valid True, cold {cold_ms:.1f} ms "
           f"(empty pubkey table, {TB._PK_TABLE._n - 1} keys added)")
@@ -1383,7 +1556,11 @@ def phase_general_verify(torch, hw: dict, sets, rand_fn) -> dict:
         {k: (round(v, 2) if isinstance(v, float) else v)
          for k, v in stages.items()}) + f" [{hw['card']}]")
     prof = profile_call(torch, hw, "general verify 1024 × 16", lambda:
-                        backend.verify_signature_sets(sets, rand_fn=rand_fn))
+                        backend.verify_signature_sets(sets, rand_fn=rand_fn),
+                        kernel_ms)
+    check(prof["kernels"] < MAX_WARM_LAUNCHES,
+          f"a warm general verify launched {prof['kernels']} CUDA kernels, "
+          f"not fewer than {MAX_WARM_LAUNCHES}")
 
     verify_in_two_sub_batches(torch, hw, backend, sets,
                               tampered["key swap (bench.py)"], rand_fn)
@@ -1414,8 +1591,9 @@ def phase_block_verify(torch, hw: dict, block, rand_fn) -> dict:
         sets, rand_fn=rand_fn))
     launches = {**HK.LAUNCHES, **PK.LAUNCHES}
     check(ok is True, "the valid block batch did not verify")
-    want = {"prepare": 2, "hash_g2": 2, "sigma": 2, "miller_fold": 2,
-            "product_chunks": 2, "finalize": 1, "miller": 0, "product": 0}
+    want = {"prepare": 2, "hash_g2": 2, "sigma": 2, "sigma_combine": 2,
+            "miller_fold": 2, "product_chunks": 2, "finalize": 1, "miller": 0,
+            "product": 0}
     check(launches == want, f"block launches {launches} != {want}")
     check(TB.LAST_PIPELINE_STATS["dispatches"] == 2,
           f"block batch dispatches {TB.LAST_PIPELINE_STATS['dispatches']}")
@@ -1544,7 +1722,8 @@ def main() -> None:
     print(f"BLS set-up (host, pure Python): {BLS_KEYS} keys and "
           f"{BLS_MSGS} signatures in {time.perf_counter() - t0:.1f} s")
     bk = phase_bls_kernels(torch, hw, sets, rand_fn)
-    bv = phase_bls_verify(torch, hw, sets, rand_fn)
+    bv = phase_bls_verify(torch, hw, sets, rand_fn,
+                          {k: t["ms"] for k, t in bk["timing"].items()})
 
     from lighthouse_tpu_torch.crypto import curve as C
     from lighthouse_tpu_torch.crypto import hash_to_curve as H2C
@@ -1569,7 +1748,9 @@ def main() -> None:
         return int(grng.integers(1, 2 ** 64, dtype=np.uint64))
 
     gk = phase_general_kernels(torch, hw, gsets, grand)
-    gv = phase_general_verify(torch, hw, gsets, grand)
+    gv = phase_general_verify(torch, hw, gsets, grand, {
+        **{k: t["ms"] for k, t in bk["timing"].items()},
+        **{k: t["ms"] for k, t in gk["timing"].items()}})
     phase_block_verify(torch, hw, block, grand)
     pf = phase_profiles(torch, hw)
 
@@ -1583,45 +1764,39 @@ def main() -> None:
                 "product_chunks":
                     "lighthouse_tpu/crypto/pairing_kernel.py:877",
                 "miller": "lighthouse_tpu/crypto/pairing_kernel.py:781",
-                "product": "lighthouse_tpu/crypto/pairing_kernel.py:843"}
+                "product": "lighthouse_tpu/crypto/pairing_kernel.py:843",
+                "sigma_combine":
+                    "lighthouse_tpu/crypto/pairing_kernel.py:1021"}
     kernels = []
+
+    def row(name, source, launches, err, t):
+        out = {"name": name, "route": "cuda",
+               "source": f"lighthouse_tpu_torch/csrc/{source}",
+               "replaces": replaces[name], "launches": launches,
+               "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": None}
+        if "chain_bound_ms" in t:      # a single dependent chain
+            out.update({k: t[k] for k in ("chain_bound_ms", "chain_products",
+                                          "rate_bound_ms", "binds")})
+        kernels.append(out)
+
     for name in ("hash64", "subtree"):
-        t = kern["timing"][name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "lighthouse_tpu_torch/csrc/sha256_merkle.cu",
-            "replaces": replaces[name],
-            "launches": state["launches"][name],
-            "max_abs_err": kern["errs"][name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+        row(name, "sha256_merkle.cu", state["launches"][name],
+            kern["errs"][name], kern["timing"][name])
     general_errs = {**gk["errs"], "finalize": gk["errs"]["finalize_wide"]}
     for name in ("hash_g2", "sigma", "miller_fold", "finalize"):
-        t = bk["timing"][name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "lighthouse_tpu_torch/csrc/bls381.cu",
-            "replaces": replaces[name],
-            "launches": bv["launches"][name],
-            "max_abs_err": max(bk["errs"][name], general_errs[name]),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+        row(name, "bls381.cu", bv["launches"][name],
+            max(bk["errs"][name], general_errs[name]), bk["timing"][name])
+    row("sigma_combine", "bls381.cu", gv["launches"]["sigma_combine"],
+        max(bk["errs"]["sigma_combine"], gk["errs"]["sigma_combine"]),
+        gk["timing"]["sigma_combine"])
     launches = {"prepare": gv["launches"]["prepare"],
                 "product_chunks": gv["launches"]["product_chunks"],
                 **pf["launches"]}
     for name in ("prepare", "product_chunks", "miller", "product"):
-        t = gk["timing"][name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "lighthouse_tpu_torch/csrc/bls381.cu",
-            "replaces": replaces[name],
-            "launches": launches[name],
-            "max_abs_err": gk["errs"][name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+        row(name, "bls381.cu", launches[name], gk["errs"][name],
+            gk["timing"][name])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(hw["card"])
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,12 @@ core in ``csrc/bls381_field.cuh``, built at first use by
   then the 128 → 1 Fq12 fold, the easy and hard parts of the cubed final
   exponentiation and ``== 1`` (replaces ``_finalize_easy_kernel`` +
   ``_finalize_hard_kernel``; the TPU split the two halves only to fit its
-  scoped-VMEM budget).
+  scoped-VMEM budget).  One block shares each tower step: the independent
+  Montgomery products of a step run on separate threads;
+- :func:`sigma_combine` — the Σ over chunks of the sigma partials, the
+  Fq2 inversion and the affine Miller-ready column, a thread per partial
+  (replaces the reference's ``sigma_combine``, XLA glue with no
+  ``pallas_call``; the H100 profile showed it as ~40k small launches).
 
 Beside each wrapper sits its plain PyTorch version (``*_plain``).  A
 wrapper runs the plain version only for a tensor on the CPU; for a CUDA
@@ -74,8 +79,8 @@ P_MINUS_2_BITS = XP.P_MINUS_2_BITS   # 381 bits
 
 _M16 = 0xFFFF
 
-LAUNCHES = {"prepare": 0, "sigma": 0, "miller_fold": 0, "miller": 0,
-            "product_chunks": 0, "product": 0, "finalize": 0}
+LAUNCHES = {"prepare": 0, "sigma": 0, "sigma_combine": 0, "miller_fold": 0,
+            "miller": 0, "product_chunks": 0, "product": 0, "finalize": 0}
 
 # Lane-products through mont_mul since the last reset: the operation
 # count chip_smoke.py turns into a bound (products × instructions per
@@ -704,16 +709,12 @@ def sigma_kernel_call(sig_cols, mask, lo, hi):
 
 
 @torch.inference_mode()
-def sigma_combine(*partials):
-    """(192, C·128) per-chunk projective partials → (the affine Σ over
-    chunks as ONE Miller-ready (128,) int32 G2 column, identity flag as a
-    0-dim bool tensor).  Plain PyTorch on the partials' device: the JAX
-    package runs this as XLA glue with the XLA twin's G2 law
+def sigma_combine_plain(*partials):
+    """Plain PyTorch version of :func:`sigma_combine`.  The JAX package
+    runs this as XLA glue with the XLA twin's G2 law
     (``limb_curve.point_add``, schoolbook Fq2) and affine conversion
     (``limb_pairing.g2_proj_to_affine``), which this mirrors.  Several
-    partials (one per side of the batch equation) fold side by side and
-    share one Fermat inversion ladder; one (col, flag) pair each is
-    returned, or the pair alone for one argument."""
+    partials fold side by side and share one Fermat inversion ladder."""
     m = partials[0].shape[1]
     pts = torch.stack([planes_in(p, 6)[:, ::PREP_S] for p in partials], 1)
     pts = pts.reshape(LIMBS, len(partials), m // PREP_S, 3, 2)
@@ -729,6 +730,35 @@ def sigma_combine(*partials):
         torch.int32)
     out = [(cols[i].reshape(-1), is_ident[i]) for i in range(len(partials))]
     return out[0] if len(partials) == 1 else out
+
+
+def sigma_combine(*partials):
+    """One or two (192, C·128) per-chunk projective partials (one per
+    side of the batch equation) → for each, the affine Σ over its chunks
+    as ONE Miller-ready (128,) int32 G2 column and its identity flag as a
+    0-dim bool tensor on the partials' device (no host sync); one
+    (col, flag) pair each, or the pair alone for one argument."""
+    if len(partials) not in (1, 2):
+        raise ValueError(f"sigma_combine takes 1 or 2 partials, got "
+                         f"{len(partials)}")
+    first = partials[0]
+    for p in partials:
+        _check_planes(p, 6 * BLOCK_ROWS, "partial", PREP_S)
+        if p.shape != first.shape or p.device != first.device:
+            raise ValueError("partials must share their shape and device")
+    if first.device.type == "cpu":
+        return sigma_combine_plain(*partials)
+    _require_cuda(first)
+    n, m = len(partials), first.shape[1]
+    cols = torch.empty((n, 4 * BLOCK_ROWS), dtype=torch.int32,
+                       device=first.device)
+    flags = torch.empty((n,), dtype=torch.bool, device=first.device)
+    _check_rc(kernel_library().lh_sigma_combine(
+        _ptr(first), _ptr(partials[-1]), cols.data_ptr(), flags.data_ptr(),
+        m, n, _stream(first)), "sigma_combine")
+    LAUNCHES["sigma_combine"] += 1
+    out = [(cols[i], flags[i]) for i in range(n)]
+    return out[0] if n == 1 else out
 
 
 # ---------------------------------------------------------------------------
@@ -1029,11 +1059,8 @@ def finalize_kernel_call(f_planes, with_value: bool = False):
     dev = f_planes.device
     ok = torch.empty((1, 1), dtype=torch.int32, device=dev)
     g = torch.empty((FQ12_ROWS, 1), dtype=torch.int32, device=dev)
-    scratch = torch.empty((LANE_BLOCK, 12 * 13), dtype=torch.int32,
-                          device=dev)
-    lib = kernel_library()
-    _check_rc(lib.lh_finalize(_ptr(f_planes), scratch.data_ptr(),
-                              ok.data_ptr(), g.data_ptr(), _stream(f_planes)),
+    _check_rc(kernel_library().lh_finalize(_ptr(f_planes), ok.data_ptr(),
+                                           g.data_ptr(), _stream(f_planes)),
               "finalize")
     LAUNCHES["finalize"] += 1
     return (ok, g) if with_value else ok
@@ -1053,8 +1080,11 @@ _SIGNATURES = {
     "lh_sigma": [_P, _P, _P, _P, _P, _LL, _P],
     # g1, g2, mask, out, lanes, stream
     "lh_miller_fold": [_P, _P, _P, _P, _LL, _P],
-    # f, scratch, ok, g, stream
-    "lh_finalize": [_P, _P, _P, _P, _P],
+    # f, ok, g, stream
+    "lh_finalize": [_P, _P, _P, _P],
+    # partial 0, partial 1 (or partial 0 again), cols, flags, lanes,
+    # partials, stream
+    "lh_sigma_combine": [_P, _P, _P, _P, _LL, ctypes.c_int, _P],
     # pk, kmask, lo, hi, out, flags, set lanes, K, stream
     "lh_prepare": [_P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, _P],
     # f, mask, out, lanes, stream
@@ -1065,6 +1095,8 @@ _SIGNATURES = {
     "lh_product": [_P, _P, _P, _P, _LL, _P],
     # a, b, out, lanes, stream
     "lh_fp_mul": [_P, _P, _P, _LL, _P],
+    # xy, out, chain length, stream
+    "lh_fp_mul_chain": [_P, _P, ctypes.c_int, _P],
 }
 _LIB_READY = []
 
@@ -1162,3 +1194,27 @@ def fp_mul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                          n, _stream(a)), "fp_mul")
     return out
 
+
+def fp_mul_chain_kernel(xy: torch.Tensor, n: int) -> torch.Tensor:
+    """x ← x·y, n dependent Montgomery products on ONE thread of the card:
+    xy (32, 2) int32 blocks (x in lane 0, y in lane 1) → x, (32, 1).  The
+    latency probe that prices the finalize's and sigma_combine's chain
+    bound in ``chip_smoke.py``; no verify path calls it."""
+    _require_cuda(xy)
+    _check_planes(xy, BLOCK_ROWS, "xy")
+    if xy.shape[1] != 2:
+        raise ValueError(f"xy must be ({BLOCK_ROWS}, 2), got {tuple(xy.shape)}")
+    out = torch.empty((BLOCK_ROWS, 1), dtype=torch.int32, device=xy.device)
+    _check_rc(kernel_library().lh_fp_mul_chain(_ptr(xy), out.data_ptr(), n,
+                                               _stream(xy)), "fp_mul_chain")
+    return out
+
+
+@torch.inference_mode()
+def fp_mul_chain_plain(xy: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fp_mul_chain_kernel`."""
+    t = planes_in(xy, 1)[..., 0]
+    x, y = t[:, :1], t[:, 1:2]
+    for _ in range(n):
+        x = mont_mul(x, y)
+    return planes_out(x.unsqueeze(-1))

@@ -13,6 +13,8 @@
 // lh_miller_fold_kernel    pairing_kernel.py _miller_fold_kernel (:938)
 // lh_finalize_kernel       pairing_kernel.py _finalize_easy_kernel +
 //                          _finalize_hard_kernel (:1165, :1173)
+// lh_sigma_combine_kernel  pairing_kernel.py sigma_combine (:1021, XLA glue,
+//                          no pallas_call)
 // lh_prepare_kernel        pairing_kernel.py _prepare_kernel (:1240)
 // lh_product_chunks_kernel pairing_kernel.py _product_chunk_kernel (:877)
 // lh_miller_kernel         pairing_kernel.py _miller_kernel (:781)
@@ -25,8 +27,14 @@
 // are tiny.  This first design is one thread per lane, the reference's
 // formulas in the reference's order, ladders rolled (#pragma unroll 1),
 // tower functions __noinline__ (the state spills to local memory, which
-// L1 caches).  The finalize tail is one serial chain (one thread); the
-// product butterfly runs 128 threads, one per residue class mod 128.
+// L1 caches).  The product butterfly runs 128 threads, one per residue
+// class mod 128.  finalize and sigma_combine are single dependent chains
+// (one verdict, one column per side): their time is the chain's latency,
+// not the card's issue rate.  sigma_combine runs each chain on one thread
+// (about 600-900 products); finalize spreads each tower step's independent
+// products over a block (the cooperative phases of bls381_field.cuh), so
+// each step of its 983-product critical path costs one wave of products
+// plus its additions and barriers, not 54 products in a row.
 // product_chunks moves the most bytes per product (two Fq12 in, one out:
 // 4.6 KB per 54 Montgomery products) and is still bound by operations.
 
@@ -107,25 +115,32 @@ lh_miller_fold_kernel(const int32_t* __restrict__ g1,
   if (tid < LANE_BLOCK) store_fp12(out, mo, col, fp12_mul(f, load_fp12(out, mo, col)));
 }
 
-// --- finalize: one block of 128 threads --------------------------------------
-// The 128 -> 1 fold in global scratch (step w: lane j < w times lane j + w,
-// which is what lane 0 of the reference's roll butterfly computes), then
-// thread 0 alone runs the easy and hard parts and the == 1 test.
-__global__ void __launch_bounds__(LANE_BLOCK)
-lh_finalize_kernel(const int32_t* __restrict__ f, Fp12* scratch, int32_t* ok,
-                   int32_t* g) {
-  const int tid = threadIdx.x;
-  scratch[tid] = load_fp12(f, LANE_BLOCK, tid);
-  __syncthreads();
-  for (int w = LANE_BLOCK / 2; w >= 1; w >>= 1) {
-    if (tid < w) scratch[tid] = fp12_mul(scratch[tid], scratch[tid + w]);
-    __syncthreads();
-  }
-  if (tid == 0) {
-    const Fp12 r = final_exp_hard(final_exp_easy(scratch[0]));
-    ok[0] = fp12_is_one(r) ? 1 : 0;
-    store_fp12(g, 1, 0, r);
-  }
+// --- finalize: one block of LH_COOP_THREADS threads sharing the tower -------
+// finalize_body (bls381_field.cuh): the 128 lanes sit in shared memory;
+// every Fq12 step is a few phases between barriers, each Montgomery
+// product of a step on its own thread (54 per Fq12 product, 8 products per
+// step of the fold), so each of the ~360 dependent steps of the hard part
+// costs one product wave (plus additions and barriers), not 54 products.
+// The Fermat inversion of the easy part stays one thread's serial chain.
+__global__ void __launch_bounds__(LH_COOP_THREADS)
+lh_finalize_kernel(const int32_t* __restrict__ f, int32_t* ok, int32_t* g) {
+  extern __shared__ __align__(16) unsigned char lh_fin_smem[];
+  finalize_body(BlockRun(), *reinterpret_cast<FinShared*>(lh_fin_smem), f,
+                ok, g);
+}
+
+// --- sigma_combine: a thread per partial --------------------------------------
+// Thread t folds partial t's C chunk sums and writes its affine column and
+// identity flag (sigma_combine_lane); the shared path's two partials run
+// side by side in one warp.
+__global__ void lh_sigma_combine_kernel(const int32_t* __restrict__ p0,
+                                        const int32_t* __restrict__ p1,
+                                        int32_t* __restrict__ cols,
+                                        unsigned char* __restrict__ flags,
+                                        long long m) {
+  const int t = threadIdx.x;
+  flags[t] = (unsigned char)sigma_combine_lane(
+      t ? p1 : p0, m, (int)(m / LANE_BLOCK), cols + t * 4 * LH_ROWS);
 }
 
 // --- prepare: one block per 128-set chunk, a thread per set -----------------
@@ -192,6 +207,18 @@ __global__ void lh_fp_mul_kernel(const int32_t* __restrict__ a,
   store_fp(out, n, lane, 0, fp_mul(load_fp(a, n, lane, 0), load_fp(b, n, lane, 0)));
 }
 
+// --- probe: a dependent chain of n Montgomery products on one thread --------
+// x <- x * y, n times, with x and y the two lanes of a (32, 2) block: the
+// latency of one dependent product, which prices the finalize's chain.
+__global__ void lh_fp_mul_chain_kernel(const int32_t* __restrict__ xy,
+                                       int32_t* __restrict__ out, int n) {
+  Fp x = load_fp(xy, 2, 0, 0);
+  const Fp y = load_fp(xy, 2, 1, 0);
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) x = fp_mul(x, y);
+  store_fp(out, 1, 0, 0, x);
+}
+
 // --- C entries ---------------------------------------------------------------
 
 extern "C" {
@@ -222,10 +249,20 @@ int lh_miller_fold(const int32_t* g1, const int32_t* g2, const int32_t* mask,
   return (int)cudaGetLastError();
 }
 
-int lh_finalize(const int32_t* f, int32_t* scratch, int32_t* ok, int32_t* g,
-                void* stream) {
-  lh_finalize_kernel<<<1, LANE_BLOCK, 0, (cudaStream_t)stream>>>(
-      f, reinterpret_cast<Fp12*>(scratch), ok, g);
+int lh_finalize(const int32_t* f, int32_t* ok, int32_t* g, void* stream) {
+  const int bytes = (int)sizeof(FinShared);   // above 48 KB: opt in
+  cudaError_t e = cudaFuncSetAttribute(
+      lh_finalize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  lh_finalize_kernel<<<1, LH_COOP_THREADS, bytes, (cudaStream_t)stream>>>(
+      f, ok, g);
+  return (int)cudaGetLastError();
+}
+
+int lh_sigma_combine(const int32_t* p0, const int32_t* p1, int32_t* cols,
+                     unsigned char* flags, long long m, int n, void* stream) {
+  lh_sigma_combine_kernel<<<1, n, 0, (cudaStream_t)stream>>>(p0, p1, cols,
+                                                            flags, m);
   return (int)cudaGetLastError();
 }
 
@@ -257,6 +294,11 @@ int lh_product(const int32_t* f, const int32_t* mask, int32_t* scratch,
   Fp12* a = reinterpret_cast<Fp12*>(scratch);
   lh_product_kernel<<<1, LANE_BLOCK, 0, (cudaStream_t)stream>>>(
       f, mask, a, a + m, out, m);
+  return (int)cudaGetLastError();
+}
+
+int lh_fp_mul_chain(const int32_t* xy, int32_t* out, int n, void* stream) {
+  lh_fp_mul_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(xy, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -30,10 +30,12 @@
 
 #if defined(__CUDACC__)
 #define LH_FN __device__ __forceinline__
+#define LH_MFN __device__ __forceinline__   // member functions
 #define LH_NI __device__ __noinline__
 #define LH_CONST __constant__
 #else
 #define LH_FN static inline
+#define LH_MFN inline
 #define LH_NI static __attribute__((noinline))
 #define LH_CONST static
 #endif
@@ -238,6 +240,12 @@ LH_NI Fp2 fp2_mul(const Fp2& a, const Fp2& b) {
   Fp m2 = fp_mul(fp_add(a.c0, a.c1), fp_add(b.c0, b.c1));
   return {fp_sub(m0, m1), fp_sub(m2, fp_add(m0, m1))};
 }
+// Schoolbook: (a0b0 - a1b1, a0b1 + a1b0) -- the XLA tower's product, which
+// the reference's sigma_combine glue runs (fq2_mul_schoolbook)
+LH_NI Fp2 fp2_mul_schoolbook(const Fp2& a, const Fp2& b) {
+  return {fp_sub(fp_mul(a.c0, b.c0), fp_mul(a.c1, b.c1)),
+          fp_add(fp_mul(a.c0, b.c1), fp_mul(a.c1, b.c0))};
+}
 LH_FN Fp2 fp2_mul_fp(const Fp2& a, const Fp& s) {
   return {fp_mul(a.c0, s), fp_mul(a.c1, s)};
 }
@@ -288,17 +296,6 @@ LH_NI Fp6 fp6_mul(const Fp6& a, const Fp6& b) {
   return r;
 }
 
-LH_NI Fp6 fp6_inv(const Fp6& a) {
-  const Fp2 &a0 = a.c[0], &a1 = a.c[1], &a2 = a.c[2];
-  Fp2 c0 = fp2_sub(fp2_mul(a0, a0), fp2_mul_by_xi(fp2_mul(a1, a2)));
-  Fp2 c1 = fp2_sub(fp2_mul_by_xi(fp2_mul(a2, a2)), fp2_mul(a0, a1));
-  Fp2 c2 = fp2_sub(fp2_mul(a1, a1), fp2_mul(a0, a2));
-  Fp2 nrm = fp2_add(fp2_mul(a0, c0),
-                    fp2_mul_by_xi(fp2_add(fp2_mul(a2, c1), fp2_mul(a1, c2))));
-  Fp2 ni = fp2_inv(nrm);
-  return {{fp2_mul(c0, ni), fp2_mul(c1, ni), fp2_mul(c2, ni)}};
-}
-
 LH_NI Fp12 fp12_mul(const Fp12& a, const Fp12& b) {
   Fp6 v00 = fp6_mul(a.c[0], b.c[0]);
   Fp6 v11 = fp6_mul(a.c[1], b.c[1]);
@@ -326,28 +323,6 @@ LH_FN Fp12 fp12_one() {
   return r;
 }
 
-LH_NI Fp12 fp12_frobenius(const Fp12& a, int n) {
-  Fp12 r;
-#pragma unroll 1
-  for (int i = 0; i < 2; ++i)
-#pragma unroll 1
-    for (int j = 0; j < 3; ++j) {
-      Fp2 c = (n & 1) ? fp2_conj(a.c[i].c[j]) : a.c[i].c[j];
-      r.c[i].c[j] = fp2_mul(c, KC.FROB[n - 1][i * 3 + j]);
-    }
-  return r;
-}
-
-LH_NI Fp12 fp12_inv(const Fp12& a) {
-  Fp6 s0 = fp6_mul(a.c[0], a.c[0]);
-  Fp6 s1 = fp6_mul(a.c[1], a.c[1]);
-  Fp6 ni = fp6_inv(fp6_sub(s0, fp6_mul_by_v(s1)));
-  Fp12 r;
-  r.c[0] = fp6_mul(a.c[0], ni);
-  r.c[1] = fp6_mul(fp6_neg(a.c[1]), ni);
-  return r;
-}
-
 LH_FN bool fp12_is_one(const Fp12& a) {
   const Fp12 one = fp12_one();
   bool ok = true;
@@ -367,13 +342,16 @@ LH_FN bool fp12_is_one(const Fp12& a) {
 
 LH_FN Fp2 g2_b3(const Fp2& t) { return fp2_muls(fp2_mul_by_xi(t), 12); }
 
-LH_NI G2P g2_add(const G2P& p, const G2P& q) {
-  Fp2 t0 = fp2_mul(p.X, q.X);
-  Fp2 t1 = fp2_mul(p.Y, q.Y);
-  Fp2 t2 = fp2_mul(p.Z, q.Z);
-  Fp2 pxy = fp2_mul(fp2_add(p.X, p.Y), fp2_add(q.X, q.Y));
-  Fp2 pyz = fp2_mul(fp2_add(p.Y, p.Z), fp2_add(q.Y, q.Z));
-  Fp2 pxz = fp2_mul(fp2_add(p.X, p.Z), fp2_add(q.X, q.Z));
+// The law over any Fq2 product MUL (a functor): Karatsuba for the kernels'
+// g2_add, schoolbook for the sigma_combine glue's g2_add_schoolbook.
+template <class MUL>
+LH_FN G2P g2_add_law(const G2P& p, const G2P& q, MUL mul) {
+  Fp2 t0 = mul(p.X, q.X);
+  Fp2 t1 = mul(p.Y, q.Y);
+  Fp2 t2 = mul(p.Z, q.Z);
+  Fp2 pxy = mul(fp2_add(p.X, p.Y), fp2_add(q.X, q.Y));
+  Fp2 pyz = mul(fp2_add(p.Y, p.Z), fp2_add(q.Y, q.Z));
+  Fp2 pxz = mul(fp2_add(p.X, p.Z), fp2_add(q.X, q.Z));
   Fp2 s3 = fp2_sub(pxy, fp2_add(t0, t1));
   Fp2 s4 = fp2_sub(pyz, fp2_add(t1, t2));
   Fp2 s5 = fp2_sub(pxz, fp2_add(t0, t2));
@@ -381,10 +359,28 @@ LH_NI G2P g2_add(const G2P& p, const G2P& q) {
   Fp2 um = fp2_sub(t1, b3t2);
   Fp2 up = fp2_add(t1, b3t2);
   G2P r;
-  r.X = fp2_sub(fp2_mul(s3, um), g2_b3(fp2_mul(s4, s5)));
-  r.Y = fp2_add(fp2_mul(up, um), fp2_muls(g2_b3(fp2_mul(t0, s5)), 3));
-  r.Z = fp2_add(fp2_mul(s4, up), fp2_muls(fp2_mul(t0, s3), 3));
+  r.X = fp2_sub(mul(s3, um), g2_b3(mul(s4, s5)));
+  r.Y = fp2_add(mul(up, um), fp2_muls(g2_b3(mul(t0, s5)), 3));
+  r.Z = fp2_add(mul(s4, up), fp2_muls(mul(t0, s3), 3));
   return r;
+}
+
+struct Fp2MulKaratsuba {
+  LH_MFN Fp2 operator()(const Fp2& a, const Fp2& b) const {
+    return fp2_mul(a, b);
+  }
+};
+struct Fp2MulSchoolbook {
+  LH_MFN Fp2 operator()(const Fp2& a, const Fp2& b) const {
+    return fp2_mul_schoolbook(a, b);
+  }
+};
+
+LH_NI G2P g2_add(const G2P& p, const G2P& q) {
+  return g2_add_law(p, q, Fp2MulKaratsuba());
+}
+LH_NI G2P g2_add_schoolbook(const G2P& p, const G2P& q) {
+  return g2_add_law(p, q, Fp2MulSchoolbook());
 }
 
 LH_FN G2P g2_identity() { return {fp2_zero(), fp2_one(), fp2_zero()}; }
@@ -562,35 +558,6 @@ LH_FN Fp12 miller_loop(const Fp& xP, const Fp& yP, const Fp2& Qx,
   return fp12_conj(f);   // x < 0
 }
 
-// f^|x|, MSB first over the 64 bits of |x|
-LH_NI Fp12 fp12_pow_x_abs(const Fp12& f) {
-  Fp12 acc = fp12_one();
-#pragma unroll 1
-  for (int b = (int)KC.x_bits - 1; b >= 0; --b) {
-    acc = fp12_mul(acc, acc);
-    if (exp_bit(KC.xabs, (uint32_t)b)) acc = fp12_mul(acc, f);
-  }
-  return acc;
-}
-
-LH_FN Fp12 pow_u(const Fp12& f) { return fp12_conj(fp12_pow_x_abs(f)); }
-
-// f^((q^6 - 1)(q^2 + 1))
-LH_NI Fp12 final_exp_easy(const Fp12& f) {
-  Fp12 m = fp12_mul(fp12_conj(f), fp12_inv(f));
-  return fp12_mul(fp12_frobenius(m, 2), m);
-}
-
-// HHT hard part x3: m^(3(p^4 - p^2 + 1)/r) for cyclotomic m
-LH_NI Fp12 final_exp_hard(const Fp12& m) {
-  Fp12 m1 = fp12_mul(pow_u(m), fp12_conj(m));
-  Fp12 k2 = fp12_mul(pow_u(m1), fp12_conj(m1));
-  Fp12 k3 = fp12_mul(pow_u(k2), fp12_frobenius(k2, 1));
-  Fp12 k4 = fp12_mul(fp12_mul(pow_u(pow_u(k3)), fp12_frobenius(k3, 2)),
-                     fp12_conj(k3));
-  return fp12_mul(k4, fp12_mul(fp12_mul(m, m), m));
-}
-
 // --- hash to G2 -------------------------------------------------------------
 
 // RFC 9380 sgn0 over Fq2, on canonical values
@@ -763,4 +730,337 @@ LH_FN void product_class(const int32_t* f, const int32_t* mask, Fp12* a,
 #pragma unroll 1
   for (long long r = 0; r < R; ++r)
     store_fp12(out, m, r * LH_LANES + t, a[r * LH_LANES + t]);
+}
+
+// --- sigma_combine ----------------------------------------------------------
+
+// One partial of sigma_combine (the reference's XLA glue): chunk c's
+// projective sum sits at lane c*128 of the (192, m) partial; the C points
+// fold in chunk order by the XLA twin's law (schoolbook Fq2), the sum goes
+// affine through fp2_inv (inv(0) = 0), and the Miller-ready column (x.c0,
+// x.c1, y.c0, y.c1, 32 rows each) is stored at ``col``.  Returns 1 where
+// the sum is the identity (its Z is 0).
+LH_FN int sigma_combine_lane(const int32_t* part, long long m, int C,
+                             int32_t* col) {
+  G2P acc = {load_fp2(part, m, 0, 0), load_fp2(part, m, 0, 2),
+             load_fp2(part, m, 0, 4)};
+#pragma unroll 1
+  for (int c = 1; c < C; ++c) {
+    const long long lane = (long long)c * LH_LANES;
+    const G2P p = {load_fp2(part, m, lane, 0), load_fp2(part, m, lane, 2),
+                   load_fp2(part, m, lane, 4)};
+    acc = g2_add_schoolbook(acc, p);
+  }
+  const int flag = fp2_is_zero(acc.Z) ? 1 : 0;
+  const Fp2 zi = fp2_inv(acc.Z);
+  store_fp2(col, 1, 0, 0, fp2_mul_schoolbook(acc.X, zi));
+  store_fp2(col, 1, 0, 2, fp2_mul_schoolbook(acc.Y, zi));
+  return flag;
+}
+
+// ---------------------------------------------------------------------------
+// Cooperative tower arithmetic: the threads of one block share each step
+// ---------------------------------------------------------------------------
+//
+// A tower product is a few phases: pre-additions, ONE wave of its
+// independent Montgomery products (54 for an Fq12 product), post-additions.
+// A phase is a function of (tid, shared state) that every thread of the
+// block runs, followed by a barrier; its work items are spread over the
+// threads, item i on thread i mod LH_COOP_THREADS.  A runner executes the
+// phases: BlockRun on the card (the phase on threadIdx.x, then
+// __syncthreads), HostRun in a plain C++ build (the phase for tid = 0 ...
+// T-1 in a loop), so a host build runs the very arithmetic the card runs.
+// An item never reads what another item of its phase writes.  Each item
+// computes its coefficient with the serial formulas above (fp2_mul,
+// fp6_mul, fp12_mul, fp2_inv, ...) on the same operands, so every value is
+// the serial one limb for limb.  A dependent chain of Fq12 steps then
+// costs one wave of products per step (plus its additions and barriers),
+// not 54 products in a row.
+
+#define LH_COOP_THREADS 256
+#define LH_COOP_BATCH 8      // Fq12 products per cooperative step
+
+#if defined(__CUDACC__)
+struct BlockRun {
+  template <class F>
+  LH_MFN void operator()(F&& phase) const {
+    phase((int)threadIdx.x);
+    __syncthreads();
+  }
+};
+#else
+struct HostRun {
+  template <class F>
+  void operator()(F&& phase) const {
+    for (int t = 0; t < LH_COOP_THREADS; ++t) phase(t);
+  }
+};
+#endif
+
+#define LH_ITEMS(i, tid, n) \
+  for (int i = (tid); i < (n); i += LH_COOP_THREADS)
+
+// Scratch of one step: up to LH_COOP_BATCH Fq12 products, i.e. three times
+// as many Fq6 products, 18 times as many Fq2 and 54 times as many Fq ones,
+// and the temporaries of the Fq6 inversion.
+struct CoopBuf {
+  Fp6 A6[3 * LH_COOP_BATCH], B6[3 * LH_COOP_BATCH], W6[3 * LH_COOP_BATCH];
+  Fp2 X[18 * LH_COOP_BATCH], Y[18 * LH_COOP_BATCH];
+  Fp M[54 * LH_COOP_BATCH];
+  Fp6 T6;
+  Fp2 C[3], NRM, NI;
+  Fp SQ[2], INV;
+};
+
+// Fq block b (0..11) of an Fq12, in the boundary layout's order.
+LH_FN Fp& fp12_block(Fp12& a, int b) {
+  Fp2& c = a.c[b / 6].c[(b >> 1) % 3];
+  return (b & 1) ? c.c1 : c.c0;
+}
+
+// X[k] <- X[k] * Y[k], k < n (fp2_mul).
+template <class Run>
+LH_NI void coop_fp2_mul(const Run& run, CoopBuf& s, int n) {
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 3 * n) {      // m0, m1, m2 of product i / 3
+      const Fp2& x = s.X[i / 3];
+      const Fp2& y = s.Y[i / 3];
+      const int t = i % 3;
+      // every thread adds, so the warp stays converged for the product
+      const Fp sx = fp_add(x.c0, x.c1), sy = fp_add(y.c0, y.c1);
+      s.M[i] = fp_mul(t == 0 ? x.c0 : t == 1 ? x.c1 : sx,
+                      t == 0 ? y.c0 : t == 1 ? y.c1 : sy);
+    }
+  });
+  run([&](int tid) {
+    LH_ITEMS(k, tid, n) {
+      const Fp* m = s.M + 3 * k;
+      s.X[k] = {fp_sub(m[0], m[1]), fp_sub(m[2], fp_add(m[0], m[1]))};
+    }
+  });
+}
+
+// W6[k] <- A6[k] * B6[k], k < n (fp6_mul: v0 v1 v2 v01 v12 v02).
+template <class Run>
+LH_NI void coop_fp6_mul(const Run& run, CoopBuf& s, int n) {
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 12 * n) {     // Fq2 operand j of product k, each side
+      const int k = i / 12, side = i % 12 / 6, j = i % 6;
+      const Fp6& a = side ? s.B6[k] : s.A6[k];
+      Fp2& out = side ? s.Y[6 * k + j] : s.X[6 * k + j];
+      out = j < 3 ? a.c[j]
+                  : fp2_add(a.c[j == 5 ? 0 : j - 3], a.c[j == 3 ? 1 : 2]);
+    }
+  });
+  coop_fp2_mul(run, s, 6 * n);
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 3 * n) {
+      const int k = i / 3, c = i % 3;
+      const Fp2* v = s.X + 6 * k;
+      s.W6[k].c[c] =
+          c == 0 ? fp2_add(v[0], fp2_mul_by_xi(fp2_sub(v[4], fp2_add(v[1], v[2]))))
+        : c == 1 ? fp2_add(fp2_sub(v[3], fp2_add(v[0], v[1])), fp2_mul_by_xi(v[2]))
+                 : fp2_add(fp2_sub(v[5], fp2_add(v[0], v[2])), v[1]);
+    }
+  });
+}
+
+// d[k] <- a[k] * b[k], k < n <= LH_COOP_BATCH (fp12_mul); d may be a or b.
+template <class Run>
+LH_NI void coop_fp12_mul(const Run& run, CoopBuf& s, Fp12* d, const Fp12* a,
+                         const Fp12* b, int n) {
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 6 * n) {      // a0 b0, a1 b1, a0 + a1 b0 + b1
+      const int k = i / 6, side = i % 6 / 3, h = i % 3;
+      const Fp12& x = side ? b[k] : a[k];
+      Fp6& out = side ? s.B6[3 * k + h] : s.A6[3 * k + h];
+      out = h < 2 ? x.c[h] : fp6_add(x.c[0], x.c[1]);
+    }
+  });
+  coop_fp6_mul(run, s, 3 * n);
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 6 * n) {      // (v00 + v11 v, vxx - (v00 + v11))
+      const int k = i / 6, h = i % 6 / 3, c = i % 3;
+      const Fp6* v = s.W6 + 3 * k;
+      d[k].c[h].c[c] =
+          h == 0 ? fp2_add(v[0].c[c], c == 0 ? fp2_mul_by_xi(v[1].c[2])
+                                             : v[1].c[c - 1])
+                 : fp2_sub(v[2].c[c], fp2_add(v[0].c[c], v[1].c[c]));
+    }
+  });
+}
+
+template <class Run>
+LH_NI void coop_fp12_conj(const Run& run, Fp12& d, const Fp12& a) {
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 6) {
+      const int h = k / 3, c = k % 3;
+      d.c[h].c[c] = h ? fp2_neg(a.c[1].c[c]) : a.c[0].c[c];
+    }
+  });
+}
+
+// d <- a^(p^n): coefficient (i, j) conjugated for odd n, times FROB[n-1].
+template <class Run>
+LH_NI void coop_fp12_frobenius(const Run& run, CoopBuf& s, Fp12& d,
+                               const Fp12& a, int n) {
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 6) {
+      const Fp2& c = a.c[k / 3].c[k % 3];
+      s.X[k] = (n & 1) ? fp2_conj(c) : c;
+      s.Y[k] = KC.FROB[n - 1][k];
+    }
+  });
+  coop_fp2_mul(run, s, 6);
+  run([&](int tid) { LH_ITEMS(k, tid, 6) d.c[k / 3].c[k % 3] = s.X[k]; });
+}
+
+// d <- a^-1 in Fq6: c0 = a0^2 - xi a1a2, c1 = xi a2^2 - a0a1, c2 = a1^2 -
+// a0a2, nrm = a0c0 + xi(a2c1 + a1c2), d = c * fp2_inv(nrm).  The Fermat
+// ladder of fp2_inv is one thread's serial chain.  d may be a.
+template <class Run>
+LH_NI void coop_fp6_inv(const Run& run, CoopBuf& s, Fp6& d, const Fp6& a) {
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 6) {          // a0a0 a1a2 a2a2 a0a1 a1a1 a0a2
+      s.X[k] = a.c[(0x010210 >> (4 * k)) & 0xF];
+      s.Y[k] = a.c[(0x211220 >> (4 * k)) & 0xF];
+    }
+  });
+  coop_fp2_mul(run, s, 6);
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 3) {
+      const Fp2* p = s.X;
+      s.C[k] = k == 0 ? fp2_sub(p[0], fp2_mul_by_xi(p[1]))
+             : k == 1 ? fp2_sub(fp2_mul_by_xi(p[2]), p[3])
+                      : fp2_sub(p[4], p[5]);
+    }
+  });
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 3) {          // a0 c0, a2 c1, a1 c2
+      s.X[k] = a.c[(0x120 >> (4 * k)) & 0xF];
+      s.Y[k] = s.C[k];
+    }
+  });
+  coop_fp2_mul(run, s, 3);
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 2) {          // nrm and the squares of fp2_inv
+      const Fp2 nrm = fp2_add(s.X[0], fp2_mul_by_xi(fp2_add(s.X[1], s.X[2])));
+      const Fp& c = k ? nrm.c1 : nrm.c0;
+      s.SQ[k] = fp_mul(c, c);
+      if (k == 0) s.NRM = nrm;
+    }
+  });
+  run([&](int tid) {
+    if (tid == 0) s.INV = fp_inv(fp_add(s.SQ[0], s.SQ[1]));
+  });
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 2) {
+      const Fp x = k ? fp_neg(s.NRM.c1) : s.NRM.c0;
+      (k ? s.NI.c1 : s.NI.c0) = fp_mul(x, s.INV);
+    }
+  });
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 3) {
+      s.X[k] = s.C[k];
+      s.Y[k] = s.NI;
+    }
+  });
+  coop_fp2_mul(run, s, 3);
+  run([&](int tid) { LH_ITEMS(k, tid, 3) d.c[k] = s.X[k]; });
+}
+
+// d <- a^-1 in Fq12: ni = (a0^2 - v a1^2)^-1, d = (a0 ni, -a1 ni).
+template <class Run>
+LH_NI void coop_fp12_inv(const Run& run, CoopBuf& s, Fp12& d, const Fp12& a) {
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 2) s.A6[k] = s.B6[k] = a.c[k];
+  });
+  coop_fp6_mul(run, s, 2);
+  run([&](int tid) {
+    if (tid == 0) s.T6 = fp6_sub(s.W6[0], fp6_mul_by_v(s.W6[1]));
+  });
+  coop_fp6_inv(run, s, s.T6, s.T6);
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 2) {
+      s.A6[k] = k ? fp6_neg(a.c[1]) : a.c[0];
+      s.B6[k] = s.T6;
+    }
+  });
+  coop_fp6_mul(run, s, 2);
+  run([&](int tid) { LH_ITEMS(k, tid, 2) d.c[k] = s.W6[k]; });
+}
+
+// d <- f^u = conj(f^|x|), MSB first over the 64 bits of |x| (cyclotomic f).
+template <class Run>
+LH_NI void coop_pow_u(const Run& run, CoopBuf& s, Fp12& d, const Fp12& f) {
+  run([&](int tid) {
+    if (tid == 0) d = fp12_one();
+  });
+#pragma unroll 1
+  for (int b = (int)KC.x_bits - 1; b >= 0; --b) {
+    coop_fp12_mul(run, s, &d, &d, &d, 1);
+    if (exp_bit(KC.xabs, (uint32_t)b)) coop_fp12_mul(run, s, &d, &d, &f, 1);
+  }
+  coop_fp12_conj(run, d, d);
+}
+
+// Shared state of the finalize: the 128 lanes of the fold, whose first
+// slots then hold the values of the final exponentiation.
+struct FinShared {
+  Fp12 F[LH_LANES];
+  CoopBuf s;
+};
+
+// The finalize (lh_finalize_kernel): the 128 -> 1 fold (level w multiplies
+// lane j < w by lane j + w, LH_COOP_BATCH products per step), the easy part
+// m = f^((q^6 - 1)(q^2 + 1)), the hard part x3 (HHT), and the == 1 test;
+// ``ok`` gets the flag and ``g`` the (384, 1) value.  f is (384, 128).
+template <class Run>
+LH_FN void finalize_body(const Run& run, FinShared& sh, const int32_t* f,
+                         int32_t* ok, int32_t* g) {
+  Fp12* F = sh.F;
+  CoopBuf& s = sh.s;
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 12 * LH_LANES)
+      fp12_block(F[i % LH_LANES], i / LH_LANES) =
+          load_fp(f, LH_LANES, i % LH_LANES, i / LH_LANES);
+  });
+#pragma unroll 1
+  for (int w = LH_LANES / 2; w >= 1; w >>= 1)
+#pragma unroll 1
+    for (int q = 0; q < w; q += LH_COOP_BATCH)
+      coop_fp12_mul(run, s, F + q, F + q, F + q + w,
+                    w - q < LH_COOP_BATCH ? w - q : LH_COOP_BATCH);
+  // easy part: m = conj(f) / f, then m^(p^2) m
+  Fp12 &inv = F[1], &t = F[2], &m = F[3];
+  coop_fp12_inv(run, s, inv, F[0]);
+  coop_fp12_conj(run, t, F[0]);
+  coop_fp12_mul(run, s, &t, &t, &inv, 1);
+  coop_fp12_frobenius(run, s, inv, t, 2);
+  coop_fp12_mul(run, s, &m, &inv, &t, 1);
+  // hard part: m1 = m^u conj(m), k2 = m1^u conj(m1), k3 = k2^u k2^p,
+  // k4 = (k3^(u^2) k3^(p^2)) conj(k3), result k4 (m^2 m)
+  Fp12 &pu = F[4], &x = F[5], &k = F[6], &u2 = F[7], &m3 = F[8], &r = F[9];
+  coop_pow_u(run, s, pu, m);
+  coop_fp12_conj(run, x, m);
+  coop_fp12_mul(run, s, &k, &pu, &x, 1);              // m1
+  coop_pow_u(run, s, pu, k);
+  coop_fp12_conj(run, x, k);
+  coop_fp12_mul(run, s, &k, &pu, &x, 1);              // k2
+  coop_pow_u(run, s, pu, k);
+  coop_fp12_frobenius(run, s, x, k, 1);
+  coop_fp12_mul(run, s, &k, &pu, &x, 1);              // k3
+  coop_pow_u(run, s, pu, k);
+  coop_pow_u(run, s, u2, pu);
+  coop_fp12_frobenius(run, s, x, k, 2);
+  coop_fp12_mul(run, s, &u2, &u2, &x, 1);
+  coop_fp12_conj(run, x, k);
+  coop_fp12_mul(run, s, &k, &u2, &x, 1);              // k4
+  coop_fp12_mul(run, s, &m3, &m, &m, 1);
+  coop_fp12_mul(run, s, &m3, &m3, &m, 1);
+  coop_fp12_mul(run, s, &r, &k, &m3, 1);
+  run([&](int tid) {
+    if (tid == 0) ok[0] = fp12_is_one(r) ? 1 : 0;
+    LH_ITEMS(b, tid, 12) store_fp(g, 1, 0, b, fp12_block(r, b));
+  });
 }
