@@ -31,14 +31,20 @@ Phases, each of which fails the run with a non-zero exit:
    on 2 cells (512 u lanes), sigma on 2 chunks (the path's signature
    columns, and random live/dead lanes with an all-dead chunk),
    sigma_combine on the path's two partials side by side and with an
-   all-dead partial, Miller+fold on one 256-lane cell with every lane
-   live and with the path's 2 live lanes, finalize on a product that is
-   1 and on one that is not.  Outputs agree limb for limb and the
-   verdict exactly; 4 hash columns match the host ``hash_to_g2``.  A
-   probe times one thread's chain of dependent Montgomery products: the
-   latency of one prices the chain bound of sigma_combine and finalize,
-   which are single dependent chains.  Each kernel is timed with CUDA
-   events beside its plain version and its bounds.
+   all-dead partial, Miller+fold on one 256-lane cell with the path's 2
+   live lanes, with every lane live, with every lane dead and with only
+   lanes j + 128 live, finalize on a product that is 1 and on one that is
+   not.  Outputs agree limb for limb and the verdict exactly; 4 hash
+   columns match the host ``hash_to_g2``.  A probe times one thread's
+   chain of dependent Montgomery products: the latency of one prices the
+   chain bounds of sigma_combine, finalize, Miller+fold and hash-to-G2,
+   whose critical paths are dependent chains.  Each kernel is timed with
+   CUDA events beside its plain version and its bounds.  The two group
+   kernels (one thread group per lane pair or message) print their
+   launch shape, shared memory, registers and stack, and
+   compute-sanitizer's racecheck runs on one cell of each in a child
+   process where the toolkit has it and the card allows it (else the
+   script says it did not run).
 6. ``verify_signature_sets`` of the port's default (``tpu``) backend on the
    sync-committee shape (512 shared keys × 256 messages, built like
    ``bench.py``): the valid batch verifies, a swapped signature and an
@@ -71,15 +77,18 @@ Phases, each of which fails the run with a non-zero exit:
    aggregates of ~90% of 512-member committees, a sync aggregate of ~460
    of 512 keys, the proposer's block and randao sets.  Two work items
    (K 512 and 1), so the finalize takes 256 lanes; the valid batch
-   verifies, a swapped signature fails; ``verify`` and
-   ``aggregate_verify`` once each, valid and tampered.
+   verifies, a swapped signature fails; the two items' Miller+fold inputs,
+   recorded in one more call, give the kernel's output raw; ``verify``
+   and ``aggregate_verify`` once each, valid and tampered.
 10. ``profile_stages(C=8)`` (the unfused Miller kernel) and the
     prepare → miller(256) → product chain (the product kernel), each
     with its launches counted and its time printed.
 
 The line before the last is one JSON object with each kernel's launches,
-error, time, plain-version time and bound (for sigma_combine and
-finalize also their chain bound); the last line is
+error, time, plain-version time and bound (for sigma_combine, finalize,
+Miller+fold and hash-to-G2 also their chain bound; the last two take
+``ms`` at the shared path's shapes and add ``ms_general`` and its bounds
+at the general path's); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing a result.
 """
@@ -115,6 +124,7 @@ SHARED_PATH_KERNELS = ("hash_g2", "sigma", "sigma_combine", "miller_fold",
                        "finalize")
 CHAIN_SHORT, CHAIN_LONG = 1000, 21000   # dependent products of the probe
 MAX_WARM_LAUNCHES = 200       # CUDA kernels per warm general verify
+RACECHECK_TIMEOUT_S = 300
 KERNEL_N = 1 << 20            # hash64 pairs / sub-tree leaves timed
 TIMED_RUNS = 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -173,7 +183,7 @@ def phase_build(torch, mk, pk, cuda_build) -> dict:
     built = cuda_build.build_all(["sha256_merkle", "bls381"])  # 2 nvcc at once
     mk.kernel_library()
     pk.kernel_library()
-    print(f"kernel builds: {time.perf_counter() - t0:.1f} s wall, both "
+    print(f"kernel builds: {time.perf_counter() - t0:.1f} s wall, every "
           f"nvcc started together")
     sass = {}
     for lib in ("sha256_merkle", "bls381"):
@@ -643,26 +653,46 @@ def mont_bound_ms(hw: dict, products: int) -> float:
         INT32_LANES_PER_SM * hw["sms"] * hw["clk_hz"]) * 1e3
 
 
-def chain_products(PK, C=None) -> int:
+def chain_products(PK, kernel: str, C=None) -> int:
     """The critical path in dependent Montgomery products, where the
-    independent products of one tower step count as one, worked out from
-    the kernels' formulas (csrc/bls381_field.cuh).  The Fermat ladder
-    a^(p-2) is one product per bit plus one per set bit; an RCB point
-    addition is two steps; f^|x| one step per bit and set bit.
+    independent products of one tower step (one wave of a thread group)
+    count as one, worked out from the kernels' formulas
+    (csrc/bls381_field.cuh).  The Fermat ladder a^(p-2) is one product per
+    bit plus one per set bit; an RCB point addition is two waves; f^|x|
+    one step per bit and set bit.
 
-    C given, ``sigma_combine`` of C chunks: C - 1 additions, then
-    fp2_inv (the squares, the ladder, the two products) and the affine
-    products.  Else the finalize: the 7 levels of the 128 -> 1 fold; the
-    easy part (Fq6 squares, in fp6_inv two Fq2 waves, the squares, the
-    ladder, the products, one Fq2 wave, then the Fq6 products, conj·inv,
-    the Frobenius, one product: 10 steps and the ladder); the hard part
-    (five f^u and six products, the Frobenius maps and m^3 beside them)."""
+    ``sigma_combine`` of C chunks: C - 1 additions, then fp2_inv (the
+    squares, the ladder, the two products) and the affine products.
+    ``finalize``: the 7 levels of the 128 -> 1 fold; the easy part (Fq6
+    squares, in fp6_inv two Fq2 waves, the squares, the ladder, the
+    products, one Fq2 wave, then the Fq6 products, conj·inv, the
+    Frobenius, one product: 10 steps and the ladder); the hard part (five
+    f^u and six products, the Frobenius maps and m^3 beside them).
+    ``miller_fold``: a doubling step per bit of |x| below its top, four
+    waves (f² beside XX YY ZZ and 2T's first wave; the line's second wave
+    beside 2T's second; B and C; f²·line), an addition step per set bit
+    among them, three waves (Q·T.Z beside T + Q's first wave; the line
+    and T + Q's second; f·line), and the fold's product.  ``hash_g2``:
+    SSWU (t², Z·t², tv1², the norm's squares, the ladder, the inverse's
+    products, NEGBA·(1 + 1/tv2), x1² beside A·x1, x1³: 8 waves and the
+    ladder; (p²+7)/16, one wave per bit; the candidates, their squares,
+    (tv1·t)·s, sgn0(y): 4), the isogeny's 5 waves, q0 + q1, the two
+    [|x|] ladders (an addition per bit and per set bit), the four final
+    additions (the ψ terms beside them), then the affine point (squares,
+    the ladder, the inverse's products, X·zi beside Y·zi)."""
     ladder = len(PK.P_MINUS_2_BITS) + int(sum(PK.P_MINUS_2_BITS))
-    if C is not None:
+    x_adds = len(PK.X_BITS_FULL) + int(sum(PK.X_BITS_FULL))
+    if kernel == "sigma_combine":
         return 2 * (C - 1) + 1 + ladder + 1 + 1
-    pow_u = len(PK.X_BITS_FULL) + int(sum(PK.X_BITS_FULL))
-    fold = PK.LANE_BLOCK.bit_length() - 1
-    return fold + (10 + ladder) + (5 * pow_u + 6)
+    if kernel == "finalize":
+        fold = PK.LANE_BLOCK.bit_length() - 1
+        return fold + (10 + ladder) + (5 * x_adds + 6)
+    if kernel == "miller_fold":
+        return (4 * len(PK.X_BITS_MILLER) + 3 * int(sum(PK.X_BITS_MILLER))
+                + 1)
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    sswu = 8 + ladder + len(HK.E16_BITS_LSB) + 4
+    return sswu + 5 + 2 + 2 * 2 * x_adds + 4 * 2 + (1 + ladder + 2)
 
 
 def bounds(hw: dict, products: int, nbytes: int = 0, chain=None) -> dict:
@@ -761,6 +791,92 @@ def plain_products(PK, fn) -> int:
     return PK.MONT_PRODUCTS[0]
 
 
+def group_configs(torch, PK, hw: dict) -> dict:
+    """The two group kernels' launch shapes at the path's sizes (Miller+fold
+    on 256 and 1280 lanes, hash-to-G2 on 2 and 8 cells, one group per lane
+    pair or message), their dynamic shared memory and what ptxas gave them;
+    at the general path's sizes every SM gets a block."""
+    out = {}
+    for which, sizes in (("miller_fold", (256, 1280)),
+                         ("hash_g2", (2 * 256, 8 * 256))):
+        info = PK.group_kernel_info(which)
+        blocks = [n // 2 // info["groups"] for n in sizes]
+        out[which] = {**info, "blocks": blocks,
+                      "shared_bytes_per_block":
+                          info["groups"] * info["shared_bytes_per_group"]}
+        print(f"{which}: {info['G']} threads a group, {info['groups']} "
+              f"groups a block, blocks {blocks} at {sizes} lanes, "
+              f"{out[which]['shared_bytes_per_block']} B dynamic shared "
+              f"memory a block, {info['registers']} registers and "
+              f"{info['local_bytes']} B stack a thread [{hw['card']}]")
+        check(blocks[-1] >= hw["sms"], f"{which} launches {blocks[-1]} "
+                                       f"blocks on {hw['sms']} SMs")
+    return out
+
+
+def race_child(which: str) -> None:
+    """One small launch of a group kernel (one cell), for racecheck."""
+    import torch
+    from lighthouse_tpu_torch import device
+    from lighthouse_tpu_torch.crypto import fields as F
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import limb_field as LF
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    device.set_default_device("cuda")
+    rng = np.random.default_rng(SEED + 8)
+    S = PK.PREP_S
+    if which == "miller_fold":      # a live pair, j + 128 alone, dead pairs
+        mask = torch.zeros((1, 2 * S), dtype=torch.int32, device="cuda")
+        mask[0, [0, S, S + 1]] = 1
+        PK.miller_fold_kernel_call(rand_planes(torch, rng, F, LF, 2, 2 * S),
+                                   rand_planes(torch, rng, F, LF, 4, 2 * S),
+                                   mask)
+    else:
+        HK.hash_g2_kernel_call(rand_planes(torch, rng, F, LF, 2, 2 * S))
+    torch.cuda.synchronize()
+    print(f"race child {which}: launched")
+
+
+def racecheck_group_kernels(hw: dict) -> dict:
+    """compute-sanitizer's racecheck on one small launch of each group
+    kernel, in a child process (this script with --race-child).  Fails on
+    any hazard reported; where the tool is absent or cannot run on this
+    card, says so: that is no pass."""
+    tool = shutil.which("compute-sanitizer") or \
+        "/usr/local/cuda/bin/compute-sanitizer"
+    if not os.path.exists(tool):
+        print("racecheck: NOT RUN (no compute-sanitizer under the CUDA "
+              "toolkit)")
+        return {"run": False}
+    result = {}
+    for which in ("miller_fold", "hash_g2"):
+        cmd = [tool, "--tool", "racecheck", "--kernel-name",
+               f"kns=lh_{which}_kernel", sys.executable,
+               os.path.abspath(__file__), "--race-child", which]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=RACECHECK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            print(f"racecheck {which}: NOT RUN to its end (over "
+                  f"{RACECHECK_TIMEOUT_S} s)")
+            result[which] = "timeout"
+            continue
+        text = r.stdout + r.stderr
+        if "Device not supported" in text:
+            print(f"racecheck {which}: NOT RUN (compute-sanitizer reports "
+                  f"'Device not supported' on {hw['card']}); no hazard "
+                  f"result")
+            result[which] = "device not supported"
+            continue
+        summary = [ln for ln in text.splitlines() if "RACECHECK SUMMARY" in ln]
+        check(r.returncode == 0 and summary and " 0 hazards" in summary[-1]
+              and "race child" in text,
+              f"racecheck {which}: rc {r.returncode}, {summary or text[-800:]}")
+        print(f"racecheck {which}: {summary[-1].strip(' =')}")
+        result[which] = "clean"
+    return result
+
+
 def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     from lighthouse_tpu_torch.crypto import fields as F
     from lighthouse_tpu_torch.crypto import hash_to_curve as H2C
@@ -828,7 +944,7 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     record("hash_g2", lambda: HK.hash_g2_kernel_call(u),
            lambda: HK.hash_g2_plain(u),
            plain_products(PK, lambda: HK.hash_g2_plain(u)),
-           f"u {tuple(u.shape)}")
+           f"u {tuple(u.shape)}", chain=chain_products(PK, "hash_g2"))
 
     # sigma: the path's signature columns; random live/dead + dead chunk
     err = 0
@@ -873,7 +989,7 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
            plain_products(PK, lambda: PK.sigma_combine_plain(h_part,
                                                              s_part)),
            f"two partials of C={n_chunks}",
-           chain=chain_products(PK, n_chunks))
+           chain=chain_products(PK, "sigma_combine", n_chunks))
 
     # the path's Miller cell, then one with every lane live
     (h_col, h_id), (s_col, s_id) = PK.sigma_combine(h_part, s_part)
@@ -887,15 +1003,18 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     rg1, rg2 = rand_planes(torch, rng, F, LF, 2, 2 * S), \
         rand_planes(torch, rng, F, LF, 4, 2 * S)
     ones = torch.ones((1, 2 * S), dtype=torch.int32, device=dev)
-    err = max(err, max_abs_err(torch, PK.miller_fold_kernel_call(rg1, rg2,
-                                                                ones),
-                               PK.miller_fold_plain(rg1, rg2, ones)))
+    high = torch.zeros_like(ones)
+    high[0, S:] = 1                      # only lanes j + 128 live
+    for mk in (ones, torch.zeros_like(ones), high):
+        err = max(err, max_abs_err(torch, PK.miller_fold_kernel_call(
+            rg1, rg2, mk), PK.miller_fold_plain(rg1, rg2, mk)))
     errs["miller_fold"] = err
     check(err == 0, "miller_fold kernel != plain (raw limbs)")
     record("miller_fold", lambda: PK.miller_fold_kernel_call(pk_col, g2, mask),
            lambda: PK.miller_fold_plain(pk_col, g2, mask),
            plain_products(PK, lambda: PK.miller_fold_plain(pk_col, g2, mask)),
-           "one 256-lane cell, the path's 2 live lanes")
+           "one 256-lane cell, the path's 2 live lanes",
+           chain=chain_products(PK, "miller_fold"))
     full_ms = cuda_ms(torch, lambda: PK.miller_fold_kernel_call(rg1, rg2, ones),
                       BLS_TIMED_RUNS)
     full_bound = mont_bound_ms(hw, plain_products(
@@ -921,11 +1040,13 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     record("finalize", lambda: PK.finalize_kernel_call(prod),
            lambda: PK.finalize_plain(prod),
            plain_products(PK, lambda: PK.finalize_plain(prod)),
-           "(384, 128)", chain=chain_products(PK))
-    print(f"BLS kernels vs plain on the card: raw limbs equal {errs}; "
-          f"finalize verdicts exact; 4 hash columns match the host "
-          f"hash_to_g2")
-    return {"errs": errs, "timing": timing}
+           "(384, 128)", chain=chain_products(PK, "finalize"))
+    print(f"BLS kernels vs plain on the card: raw limbs equal {errs} (Miller+"
+          f"fold also all-dead and with only lanes j + 128 live); finalize "
+          f"verdicts exact; 4 hash columns match the host hash_to_g2")
+    return {"errs": errs, "timing": timing,
+            "groups": group_configs(torch, PK, hw),
+            "racecheck": racecheck_group_kernels(hw)}
 
 
 # ---------------------------------------------------------------------------
@@ -1189,7 +1310,7 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
               f"{100 * best / k_ms:.2f}% of the binding bound, {shape} "
               f"[{hw['card']}]")
 
-    def compare_once(name, kern, plain, ins, shape) -> int:
+    def compare_once(name, kern, plain, ins, shape, chain=None) -> int:
         """Raw limbs of one kernel call against one plain call on the
         same inputs (timed with CUDA events, its Montgomery products
         counted), then the kernel's median of BLS_TIMED_RUNS."""
@@ -1206,14 +1327,15 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
                         f"shape {shape} (raw limbs)")
         k_ms = cuda_ms(torch, lambda: kern(*ins), BLS_TIMED_RUNS)
         nbytes = 4 * (sum(x.numel() for x in ins) + want.numel())
-        ops_ms = mont_bound_ms(hw, products)
-        b_ms = max(ops_ms, nbytes / HBM_BYTES_PER_S * 1e3)
-        timing[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
+        t = {"ms": k_ms, "plain_ms": p_ms, "shape": shape,
+             **bounds(hw, products, nbytes, chain)}
+        timing[name] = t
+        best = max(t["bound_ms"], t.get("chain_bound_ms", 0.0))
         print(f"{name} at the general path's shape: raw max abs err {err}; "
               f"{k_ms:.3f} ms kernel (median of {BLS_TIMED_RUNS}), "
-              f"{p_ms:.1f} ms plain (one run), bound {b_ms:.4f} ms "
-              f"({products} Montgomery products, {nbytes} B) -> "
-              f"{100 * b_ms / k_ms:.2f}% of bound, {shape} [{hw['card']}]")
+              f"{p_ms:.1f} ms plain (one run), {bound_note(t)}; {products} "
+              f"Montgomery products, {nbytes} B -> {100 * best / k_ms:.2f}% "
+              f"of the binding bound, {shape} [{hw['card']}]")
         return err
 
     # prepare at the path's shape, then with edge lanes: masked key slots,
@@ -1293,7 +1415,7 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
            lambda: PK.sigma_combine_plain(part),
            plain_products(PK, lambda: PK.sigma_combine_plain(part)),
            4 * (part.numel() + 129), f"one partial, C={n_chunks}",
-           chain=chain_products(PK, n_chunks))
+           chain=chain_products(PK, "sigma_combine", n_chunks))
     for name, kern, plain, ins, shape in (
             ("hash_g2", HK.hash_g2_kernel_call, HK.hash_g2_plain, (u_d,),
              f"u {tuple(u_d.shape)}"),
@@ -1302,7 +1424,9 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
              f"sig {tuple(sig_d.shape)}, C={sig_d.shape[1] // S}"),
             ("miller_fold", PK.miller_fold_kernel_call, PK.miller_fold_plain,
              cell, f"{cell[0].shape[1]} lanes, {n_live} live")):
-        errs[name] = compare_once(name, kern, plain, ins, shape)
+        chain = (chain_products(PK, name)
+                 if name in ("hash_g2", "miller_fold") else None)
+        errs[name] = compare_once(name, kern, plain, ins, shape, chain)
 
     # miller at 256 and 1024 lanes on the path's points (c·aggpk, H(m))
     err = 0
@@ -1428,9 +1552,10 @@ def profile_call(torch, hw: dict, label: str, fn, kernel_ms=None) -> dict:
     traced_busy = sum(d for d, _c, _k in devt) / 1e3
     copies = sum(c for _d, c, k in devt if k.startswith(("Memcpy", "Memset")))
     traced = {}
-    for _d, c, k in devt:                  # "lh_<name>_kernel(...)"
+    for _d, c, k in devt:   # "lh_<name>_kernel(...)", "void lh_<name>_kernel<G>(...)"
+        k = k.removeprefix("void ")
         if k.startswith("lh_"):
-            name = k.split("(")[0][3:].removesuffix("_kernel")
+            name = k.split("(")[0].split("<")[0][3:].removesuffix("_kernel")
             traced[name] = traced.get(name, 0) + c
     missed = {k: n - traced.get(k, 0) for k, n in launched.items()
               if n > traced.get(k, 0)}
@@ -1602,6 +1727,28 @@ def phase_block_verify(torch, hw: dict, block, rand_fn) -> dict:
                               sets[3].message)
     check(backend.verify_signature_sets(bad, rand_fn=rand_fn) is False,
           "the block batch with a swapped signature verified")
+    # the two work items' Miller+fold inputs (K 512 and K 1), recorded in
+    # one more valid call, kernel against plain
+    inputs, kernel_call = [], PK.miller_fold_kernel_call
+
+    def recording(*args, **kw):
+        inputs.append([a.clone() for a in args])
+        return kernel_call(*args, **kw)
+
+    PK.miller_fold_kernel_call = recording
+    try:
+        check(backend.verify_signature_sets(sets, rand_fn=rand_fn) is True,
+              "the valid block batch did not verify (recorded call)")
+    finally:
+        PK.miller_fold_kernel_call = kernel_call
+    check(len(inputs) == 2, f"{len(inputs)} Miller+fold calls, not 2")
+    miller_err = max(max_abs_err(torch, kernel_call(*a),
+                                 PK.miller_fold_plain(*a)) for a in inputs)
+    check(miller_err == 0, "miller_fold kernel != plain on the block batch's "
+                           "inputs (raw limbs)")
+    print("block batch Miller+fold inputs " + ", ".join(
+        f"{a[0].shape[1]} lanes ({int(a[2].sum())} live)" for a in inputs)
+        + ": kernel raw equal to plain")
     warm = [timed(torch, lambda: backend.verify_signature_sets(
         sets, rand_fn=rand_fn))[1] for _ in range(3)]
     print(f"block verify: valid True ({ms:.1f} ms cold table for its keys, "
@@ -1635,7 +1782,8 @@ def phase_block_verify(torch, hw: dict, block, rand_fn) -> dict:
           "aggregate_verify with the messages rotated passed")
     print("verify: valid True, altered message False; aggregate_verify "
           "(4 signers): valid True, messages rotated False")
-    return {"launches": launches, "ms": ms, "warm": warm, "stages": stages}
+    return {"launches": launches, "ms": ms, "warm": warm, "stages": stages,
+            "miller_err": miller_err}
 
 
 # ---------------------------------------------------------------------------
@@ -1695,6 +1843,9 @@ def phase_profiles(torch, hw: dict) -> dict:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--race-child"]:
+        race_child(sys.argv[2])
+        return
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -1751,7 +1902,7 @@ def main() -> None:
     gv = phase_general_verify(torch, hw, gsets, grand, {
         **{k: t["ms"] for k, t in bk["timing"].items()},
         **{k: t["ms"] for k, t in gk["timing"].items()}})
-    phase_block_verify(torch, hw, block, grand)
+    blk = phase_block_verify(torch, hw, block, grand)
     pf = phase_profiles(torch, hw)
 
     replaces = {"hash64": "lighthouse_tpu/ops/merkle_kernel.py:192",
@@ -1785,9 +1936,20 @@ def main() -> None:
         row(name, "sha256_merkle.cu", state["launches"][name],
             kern["errs"][name], kern["timing"][name])
     general_errs = {**gk["errs"], "finalize": gk["errs"]["finalize_wide"]}
+    general_errs["miller_fold"] = max(general_errs["miller_fold"],
+                                      blk["miller_err"])
     for name in ("hash_g2", "sigma", "miller_fold", "finalize"):
         row(name, "bls381.cu", bv["launches"][name],
             max(bk["errs"][name], general_errs[name]), bk["timing"][name])
+        if name in ("hash_g2", "miller_fold"):    # the general path's shape
+            g = gk["timing"][name]
+            kernels[-1].update(
+                ms_general=g["ms"], shape_general=g["shape"],
+                rate_bound_ms_general=g["bound_ms"],
+                chain_bound_ms_general=g["chain_bound_ms"],
+                binds_general=g["binds"], plain_ms_general=g["plain_ms"],
+                **{f"{k}_launch": v for k, v in bk["groups"][name].items()
+                   if k in ("G", "groups")})
     row("sigma_combine", "bls381.cu", gv["launches"]["sigma_combine"],
         max(bk["errs"]["sigma_combine"], gk["errs"]["sigma_combine"]),
         gk["timing"]["sigma_combine"])

@@ -11,8 +11,10 @@ runs, per message,
     Fq2 ladder) → 3-isogeny to E (projective) → u0 + u1 → Budroni–Pintore
     ψ cofactor clearing (two |x| ladders) → affine.
 
-The u layout is the JAX package's: each 128-message cell holds 256
-lanes, u0 in lanes [g·256, g·256+128) and u1 in the next 128.
+The kernel runs one thread group per message: u0 and u1 side by side,
+each step's independent products as one wave.  The u layout is the JAX
+package's: each 128-message cell holds 256 lanes, u0 in lanes
+[g·256, g·256+128) and u1 in the next 128.
 :func:`hash_g2_plain` is the plain version; the wrapper runs it only for
 a tensor on the CPU.
 """

@@ -13,7 +13,9 @@ core in ``csrc/bls381_field.cuh``, built at first use by
   128-lane roll-add butterfly (replaces ``_sigma_kernel``);
 - :func:`miller_fold_kernel_call` — the 63-iteration Miller loop,
   conjugate, mask and the fold of lane j with lane j+128 (replaces
-  ``_miller_fold_kernel``);
+  ``_miller_fold_kernel``).  One thread group per lane pair shares each
+  step's independent products; :func:`group_kernel_info` reports its
+  launch shape;
 - :func:`miller_kernel_call` — the Miller loop alone, every lane
   (replaces ``_miller_kernel``; the stage profile runs it);
 - :func:`product_chunks_kernel_call` — per 256-lane chunk, the masked
@@ -1080,6 +1082,8 @@ _SIGNATURES = {
     "lh_sigma": [_P, _P, _P, _P, _P, _LL, _P],
     # g1, g2, mask, out, lanes, stream
     "lh_miller_fold": [_P, _P, _P, _P, _LL, _P],
+    # which kernel (0 Miller+fold, 1 hash-to-G2), info out
+    "lh_group_kernel_info": [ctypes.c_int, _P],
     # f, ok, g, stream
     "lh_finalize": [_P, _P, _P, _P],
     # partial 0, partial 1 (or partial 0 again), cols, flags, lanes,
@@ -1160,6 +1164,17 @@ def kernel_library() -> ctypes.CDLL:
                   "bls constant upload")
         _LIB_READY.append(True)
     return lib
+
+
+def group_kernel_info(which: str) -> dict:
+    """Launch shape and ptxas resources of a group kernel (``miller_fold``
+    or ``hash_g2``)."""
+    info = np.zeros(5, np.int32)
+    _check_rc(kernel_library().lh_group_kernel_info(
+        ("miller_fold", "hash_g2").index(which), info.ctypes.data),
+        "group kernel info")
+    return dict(zip(("G", "groups", "shared_bytes_per_group", "registers",
+                     "local_bytes"), (int(v) for v in info)))
 
 
 def _check_rc(rc: int, what: str) -> None:

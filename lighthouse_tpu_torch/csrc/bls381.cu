@@ -22,19 +22,37 @@
 //
 // What bounds them: integer multiply-adds.  Each is a long chain of
 // 13-word Montgomery products (fp_mul) per lane with a few kilobytes of
-// state, so the bound is the Montgomery products the work needs times
+// state, so the rate bound is the Montgomery products the work needs times
 // the instructions per product over the INT32 issue rate; the bytes moved
-// are tiny.  This first design is one thread per lane, the reference's
-// formulas in the reference's order, ladders rolled (#pragma unroll 1),
-// tower functions __noinline__ (the state spills to local memory, which
-// L1 caches).  The product butterfly runs 128 threads, one per residue
-// class mod 128.  finalize and sigma_combine are single dependent chains
-// (one verdict, one column per side): their time is the chain's latency,
-// not the card's issue rate.  sigma_combine runs each chain on one thread
-// (about 600-900 products); finalize spreads each tower step's independent
-// products over a block (the cooperative phases of bls381_field.cuh), so
-// each step of its 983-product critical path costs one wave of products
-// plus its additions and barriers, not 54 products in a row.
+// are tiny.  Where a kernel's critical path is one dependent chain its
+// chain bound (the path in products, independent products of a step
+// counted once, times the latency of one dependent product) is the larger.
+// The reference's formulas run in the reference's order in every design.
+//
+// One thread per lane: sigma, prepare, product_chunks and the unfused
+// Miller kernel (ladders rolled, tower functions __noinline__); the product
+// butterfly runs 128 threads, one per residue class mod 128; sigma_combine
+// runs each partial's chain (about 600-900 products) on one thread.
+//
+// Thread groups sharing each tower step (the cooperative phases of
+// bls381_field.cuh): each step's independent Montgomery products run as one
+// wave on the group's threads, its additions as item phases, then the
+// group's barrier.  finalize is one 256-thread group (the block): each step
+// of its 983-product chain costs a wave, not 54 products in a row.
+// Miller+fold and hash-to-G2 run one small group per lane pair or message
+// (LH_MILLER_G, LH_HASH_G threads; several groups a block, enough blocks
+// for every SM at the general path's sizes), so their many independent
+// chains fill the card and each chain is a few hundred waves:
+//   lh_miller_fold_kernel replaces _miller_fold_kernel (pairing_kernel.py
+//     :893, pallas_call :938).  Rate bound at 1280 lanes (1025 live) 1.02
+//     ms; chain bound 268 products (four waves a doubling step, three an
+//     addition step, the fold), about 0.40 ms, which binds at the shared
+//     path's 2 live lanes.
+//   lh_hash_g2_kernel replaces _hash_g2_kernel (htc_kernel.py :247,
+//     pallas_call :285).  Chain bound 2,288 products (about 3.4 ms), which
+//     binds at both paths' sizes (the rate bound prices the plain version's
+//     distinct messages only); its two Fermat ladders (2 x 610 products)
+//     stay one thread's serial chain.
 // product_chunks moves the most bytes per product (two Fq12 in, one out:
 // 4.6 KB per 54 Montgomery products) and is still bound by operations.
 
@@ -44,27 +62,21 @@
 
 #define LANE_BLOCK 128
 
-// --- hash to G2: one 256-lane cell per block ---------------------------------
-// Thread t maps u lane t (u0 for t < 128, u1 above) through SSWU and the
-// isogeny; thread t < 128 then adds its partner's point, clears the
-// cofactor and writes the affine column t of the cell.
-__global__ void __launch_bounds__(2 * LANE_BLOCK)
+// --- hash to G2: one group of G threads per message -------------------------
+// hash_g2_body (bls381_field.cuh): u0 and u1 side by side through SSWU and
+// the isogeny, then q0 + q1, cofactor clearing and the affine point, each
+// step one wave of products; the group's state sits in shared memory
+// (HashShared, one per group); groups of 32 sync on __syncwarp, groups of
+// 64 or 128 on named barriers 1..15.
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX)
 lh_hash_g2_kernel(const int32_t* __restrict__ u, int32_t* __restrict__ out,
                   long long m2) {
-  __shared__ G2P partner[LANE_BLOCK];
-  const int tid = threadIdx.x;
-  const long long lane = (long long)blockIdx.x * 2 * LANE_BLOCK + tid;
-  G2P q = hash_lane(load_fp2(u, m2, lane, 0));
-  if (tid >= LANE_BLOCK) partner[tid - LANE_BLOCK] = q;
-  __syncthreads();
-  if (tid < LANE_BLOCK) {
-    Fp2 xa, ya;
-    hash_finish(q, partner[tid], xa, ya);
-    const long long m = m2 / 2;
-    const long long col = (long long)blockIdx.x * LANE_BLOCK + tid;
-    store_fp2(out, m, col, 0, xa);
-    store_fp2(out, m, col, 2, ya);
-  }
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  hash_g2_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+               reinterpret_cast<HashShared*>(lh_group_smem)[gi], u, out, m2,
+               (long long)blockIdx.x * groups + gi);
 }
 
 // --- sigma: one 128-lane chunk per block -------------------------------------
@@ -94,25 +106,23 @@ lh_sigma_kernel(const int32_t* __restrict__ sig,
   store_fp2(out, m, lane, 4, acc.Z);
 }
 
-// --- Miller loop + masked fold: one 256-lane cell per block ------------------
-// Every thread runs the Miller loop of its pair; dead lanes become 1.
-// Threads 128..255 park their value in the output column their partner
-// will write, and thread j < 128 writes f_j * f_{j+128} over it.
-__global__ void __launch_bounds__(2 * LANE_BLOCK)
+// --- Miller loop + masked fold: one group of G threads per lane pair ---------
+// miller_fold_body (bls381_field.cuh): pair (j, j + 128) of a cell, both
+// live lanes' doubling and addition steps as shared waves (a dead lane
+// skips its loop and is ONE), then f_j * f_{j+128}; the state sits in
+// shared memory (MillerShared, one per group).  At most 128 registers, so
+// four 128-thread blocks fit an SM.
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX, 2)
 lh_miller_fold_kernel(const int32_t* __restrict__ g1,
                       const int32_t* __restrict__ g2,
                       const int32_t* __restrict__ mask, int32_t* out,
                       long long m) {
-  const int tid = threadIdx.x;
-  const long long lane = (long long)blockIdx.x * 2 * LANE_BLOCK + tid;
-  Fp12 f = miller_loop(load_fp(g1, m, lane, 0), load_fp(g1, m, lane, 1),
-                       load_fp2(g2, m, lane, 0), load_fp2(g2, m, lane, 2));
-  if (mask[lane] == 0) f = fp12_one();
-  const long long mo = m / 2;
-  const long long col = (long long)blockIdx.x * LANE_BLOCK + (tid % LANE_BLOCK);
-  if (tid >= LANE_BLOCK) store_fp12(out, mo, col, f);
-  __syncthreads();
-  if (tid < LANE_BLOCK) store_fp12(out, mo, col, fp12_mul(f, load_fp12(out, mo, col)));
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  miller_fold_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+                   reinterpret_cast<MillerShared*>(lh_group_smem)[gi], g1, g2,
+                   mask, out, m, (long long)blockIdx.x * groups + gi);
 }
 
 // --- finalize: one block of LH_COOP_THREADS threads sharing the tower -------
@@ -125,8 +135,8 @@ lh_miller_fold_kernel(const int32_t* __restrict__ g1,
 __global__ void __launch_bounds__(LH_COOP_THREADS)
 lh_finalize_kernel(const int32_t* __restrict__ f, int32_t* ok, int32_t* g) {
   extern __shared__ __align__(16) unsigned char lh_fin_smem[];
-  finalize_body(BlockRun(), *reinterpret_cast<FinShared*>(lh_fin_smem), f,
-                ok, g);
+  finalize_body(GroupRun<LH_COOP_THREADS>{(int)threadIdx.x, 0},
+                *reinterpret_cast<FinShared*>(lh_fin_smem), f, ok, g);
 }
 
 // --- sigma_combine: a thread per partial --------------------------------------
@@ -229,10 +239,31 @@ int lh_bls_init(const void* host_consts, int nwords) {
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-int lh_hash_g2(const int32_t* u, int32_t* out, long long m2, void* stream) {
-  lh_hash_g2_kernel<<<(unsigned)(m2 / (2 * LANE_BLOCK)), 2 * LANE_BLOCK, 0,
-                      (cudaStream_t)stream>>>(u, out, m2);
+}  // extern "C"
+
+// One group of G threads per work item (n of them), ``groups`` a block,
+// each with its Shared state in dynamic shared memory.  Named barriers
+// allow 15 groups of more than 32 threads a block.
+template <class Shared, int G, int groups, class... P, class... A>
+static int launch_groups(void (*kernel)(P...), long long n, void* stream,
+                         A... args) {
+  static_assert(G * groups <= LH_GROUP_BLOCK_MAX && (G == 32 || groups <= 15),
+                "launch shape");
+  if (n % groups != 0) return (int)cudaErrorInvalidValue;
+  const int bytes = groups * (int)sizeof(Shared);   // above 48 KB: opt in
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)(n / groups), G * groups, bytes, (cudaStream_t)stream>>>(
+      args...);
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+int lh_hash_g2(const int32_t* u, int32_t* out, long long m2, void* stream) {
+  return launch_groups<HashShared, LH_HASH_G, LH_HASH_GROUPS>(   // a group
+      lh_hash_g2_kernel<LH_HASH_G>, m2 / 2, stream, u, out, m2); // a message
 }
 
 int lh_sigma(const int32_t* sig, const int32_t* mask, const int32_t* lo,
@@ -244,9 +275,26 @@ int lh_sigma(const int32_t* sig, const int32_t* mask, const int32_t* lo,
 
 int lh_miller_fold(const int32_t* g1, const int32_t* g2, const int32_t* mask,
                    int32_t* out, long long m, void* stream) {
-  lh_miller_fold_kernel<<<(unsigned)(m / (2 * LANE_BLOCK)), 2 * LANE_BLOCK, 0,
-                          (cudaStream_t)stream>>>(g1, g2, mask, out, m);
-  return (int)cudaGetLastError();
+  return launch_groups<MillerShared, LH_MILLER_G, LH_MILLER_GROUPS>(
+      lh_miller_fold_kernel<LH_MILLER_G>, m / 2, stream,   // a lane pair
+      g1, g2, mask, out, m);
+}
+
+// A group kernel's launch shape (which: 0 Miller+fold, 1 hash-to-G2) and
+// what ptxas gave it: info = {threads a group, groups a block, shared
+// bytes a group, registers a thread, local (stack) bytes a thread}.
+int lh_group_kernel_info(int which, int* info) {
+  cudaFuncAttributes a;
+  cudaError_t e =
+      which ? cudaFuncGetAttributes(&a, lh_hash_g2_kernel<LH_HASH_G>)
+            : cudaFuncGetAttributes(&a, lh_miller_fold_kernel<LH_MILLER_G>);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = which ? LH_HASH_G : LH_MILLER_G;
+  info[1] = which ? LH_HASH_GROUPS : LH_MILLER_GROUPS;
+  info[2] = which ? (int)sizeof(HashShared) : (int)sizeof(MillerShared);
+  info[3] = a.numRegs;
+  info[4] = (int)a.localSizeBytes;
+  return 0;
 }
 
 int lh_finalize(const int32_t* f, int32_t* ok, int32_t* g, void* stream) {

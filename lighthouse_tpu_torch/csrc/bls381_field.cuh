@@ -80,7 +80,37 @@ LH_FN uint32_t exp_bit(const uint32_t* words, uint32_t b) {
 // Fq
 // ---------------------------------------------------------------------------
 
+// On the card the two raw 13-word chains are PTX carry chains (add.cc /
+// addc, sub.cc / subc): the same bits as the C loops, which the host build
+// keeps, with one dependent instruction a word.
 LH_FN void fp_add_raw(Fp& r, const Fp& a, const Fp& b) {  // mod 2^416
+#if defined(__CUDA_ARCH__)
+  asm("add.cc.u32 %0, %13, %26;\n\t"
+      "addc.cc.u32 %1, %14, %27;\n\t"
+      "addc.cc.u32 %2, %15, %28;\n\t"
+      "addc.cc.u32 %3, %16, %29;\n\t"
+      "addc.cc.u32 %4, %17, %30;\n\t"
+      "addc.cc.u32 %5, %18, %31;\n\t"
+      "addc.cc.u32 %6, %19, %32;\n\t"
+      "addc.cc.u32 %7, %20, %33;\n\t"
+      "addc.cc.u32 %8, %21, %34;\n\t"
+      "addc.cc.u32 %9, %22, %35;\n\t"
+      "addc.cc.u32 %10, %23, %36;\n\t"
+      "addc.cc.u32 %11, %24, %37;\n\t"
+      "addc.u32 %12, %25, %38;\n\t"
+      : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]),
+        "=r"(r.w[4]), "=r"(r.w[5]), "=r"(r.w[6]), "=r"(r.w[7]),
+        "=r"(r.w[8]), "=r"(r.w[9]), "=r"(r.w[10]), "=r"(r.w[11]),
+        "=r"(r.w[12])
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]),
+        "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]),
+        "r"(a.w[8]), "r"(a.w[9]), "r"(a.w[10]), "r"(a.w[11]),
+        "r"(a.w[12]), "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]),
+        "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]),
+        "r"(b.w[7]), "r"(b.w[8]), "r"(b.w[9]), "r"(b.w[10]),
+        "r"(b.w[11]), "r"(b.w[12]));
+  return;
+#endif
   uint64_t c = 0;
 #pragma unroll
   for (int i = 0; i < LH_NW; ++i) {
@@ -91,6 +121,35 @@ LH_FN void fp_add_raw(Fp& r, const Fp& a, const Fp& b) {  // mod 2^416
 }
 
 LH_FN uint32_t fp_sub_raw(Fp& r, const Fp& a, const Fp& b) {  // borrow out
+#if defined(__CUDA_ARCH__)
+  uint32_t bo;
+  asm("sub.cc.u32 %0, %14, %27;\n\t"
+      "subc.cc.u32 %1, %15, %28;\n\t"
+      "subc.cc.u32 %2, %16, %29;\n\t"
+      "subc.cc.u32 %3, %17, %30;\n\t"
+      "subc.cc.u32 %4, %18, %31;\n\t"
+      "subc.cc.u32 %5, %19, %32;\n\t"
+      "subc.cc.u32 %6, %20, %33;\n\t"
+      "subc.cc.u32 %7, %21, %34;\n\t"
+      "subc.cc.u32 %8, %22, %35;\n\t"
+      "subc.cc.u32 %9, %23, %36;\n\t"
+      "subc.cc.u32 %10, %24, %37;\n\t"
+      "subc.cc.u32 %11, %25, %38;\n\t"
+      "subc.cc.u32 %12, %26, %39;\n\t"
+      "subc.u32 %13, 0, 0;"
+      : "=r"(r.w[0]), "=r"(r.w[1]), "=r"(r.w[2]), "=r"(r.w[3]),
+        "=r"(r.w[4]), "=r"(r.w[5]), "=r"(r.w[6]), "=r"(r.w[7]),
+        "=r"(r.w[8]), "=r"(r.w[9]), "=r"(r.w[10]), "=r"(r.w[11]),
+        "=r"(r.w[12]), "=r"(bo)
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]),
+        "r"(a.w[4]), "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]),
+        "r"(a.w[8]), "r"(a.w[9]), "r"(a.w[10]), "r"(a.w[11]),
+        "r"(a.w[12]), "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]),
+        "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]),
+        "r"(b.w[7]), "r"(b.w[8]), "r"(b.w[9]), "r"(b.w[10]),
+        "r"(b.w[11]), "r"(b.w[12]));
+  return bo & 1u;
+#endif
   uint64_t br = 0;
 #pragma unroll
   for (int i = 0; i < LH_NW; ++i) {
@@ -207,11 +266,6 @@ LH_NI Fp fp_inv(const Fp& a) {
     if (exp_bit(KC.pm2, (uint32_t)i)) acc = fp_mul(acc, a);
   }
   return acc;
-}
-
-// mont_mul by the integer 1, then minus N: the canonical value (k_canonical)
-LH_FN Fp fp_canonical(const Fp& a) {
-  return fp_cond_sub(fp_mul(a, KC.RAW_ONE), KC.N);
 }
 
 // ---------------------------------------------------------------------------
@@ -558,122 +612,6 @@ LH_FN Fp12 miller_loop(const Fp& xP, const Fp& yP, const Fp2& Qx,
   return fp12_conj(f);   // x < 0
 }
 
-// --- hash to G2 -------------------------------------------------------------
-
-// RFC 9380 sgn0 over Fq2, on canonical values
-LH_FN uint32_t fp2_sgn0(const Fp2& a) {
-  Fp c0 = fp_canonical(a.c0);
-  Fp c1 = fp_canonical(a.c1);
-  uint32_t z0 = fp_eq(c0, fp_zero()) ? 1u : 0u;
-  return (c0.w[0] & 1u) | (z0 & (c1.w[0] & 1u));
-}
-
-// a^((p^2 + 7)/16), LSB first
-LH_NI Fp2 fp2_pow_e16(const Fp2& a) {
-  Fp2 res = fp2_one();
-  Fp2 base = a;
-#pragma unroll 1
-  for (uint32_t i = 0; i < KC.e16_bits; ++i) {
-    if (exp_bit(KC.e16, i)) res = fp2_mul(res, base);
-    base = fp2_mul(base, base);
-  }
-  return res;
-}
-
-// Simplified SWU onto E' with the branchless 8-candidate square root
-LH_NI void sswu_map(const Fp2& t, Fp2& x, Fp2& y) {
-  Fp2 tt = fp2_mul(t, t);
-  Fp2 tv1 = fp2_mul(KC.H_Z, tt);
-  Fp2 tv2 = fp2_add(fp2_mul(tv1, tv1), tv1);
-  bool d_zero = fp2_is_zero(tv2);
-  Fp2 x1 = fp2_mul(KC.H_NEGBA, fp2_add(fp2_one(), fp2_inv(tv2)));
-  if (d_zero) x1 = KC.H_X1EXC;
-  Fp2 gx1 = fp2_add(fp2_mul(fp2_mul(x1, x1), x1),
-                    fp2_add(fp2_mul(KC.H_A, x1), KC.H_B));
-  Fp2 c = fp2_pow_e16(gx1);
-  Fp2 y1 = fp2_zero(), s = fp2_zero();
-  bool is_qr = false;
-  Fp2 zgx1 = fp2_mul(KC.H_Z, gx1);
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k) {
-    Fp2 cand = fp2_mul(c, KC.E8I[k]);
-    if (fp2_eq(fp2_mul(cand, cand), gx1)) {
-      y1 = cand;
-      is_qr = true;
-    }
-  }
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k) {
-    Fp2 cand = fp2_mul(c, KC.TK[k]);
-    if (fp2_eq(fp2_mul(cand, cand), zgx1)) s = cand;
-  }
-  if (is_qr) {
-    x = x1;
-    y = y1;
-  } else {
-    x = fp2_mul(tv1, x1);
-    y = fp2_mul(fp2_mul(tv1, t), s);
-  }
-  if (fp2_sgn0(t) != fp2_sgn0(y)) y = fp2_neg(y);
-}
-
-// 3-isogeny E' -> E, projective: (XN*YD, y*YN*XD, XD*YD).  The
-// polynomials add their terms low degree first; XD and YD are monic.
-LH_NI G2P iso_map_proj(const Fp2& x, const Fp2& y) {
-  Fp2 x2 = fp2_mul(x, x);
-  Fp2 x3 = fp2_mul(x2, x);
-  Fp2 xn = fp2_add(fp2_add(fp2_add(KC.XN[0], fp2_mul(KC.XN[1], x)),
-                           fp2_mul(KC.XN[2], x2)), fp2_mul(KC.XN[3], x3));
-  Fp2 xd = fp2_add(fp2_add(KC.XD[0], fp2_mul(KC.XD[1], x)), x2);
-  Fp2 yp = fp2_add(fp2_add(fp2_add(KC.YN[0], fp2_mul(KC.YN[1], x)),
-                           fp2_mul(KC.YN[2], x2)), fp2_mul(KC.YN[3], x3));
-  Fp2 yn = fp2_mul(y, yp);
-  Fp2 yd = fp2_add(fp2_add(fp2_add(KC.YD[0], fp2_mul(KC.YD[1], x)),
-                           fp2_mul(KC.YD[2], x2)), x3);
-  return {fp2_mul(xn, yd), fp2_mul(yn, xd), fp2_mul(xd, yd)};
-}
-
-// [|x|]P, MSB first
-LH_NI G2P g2_mul_x_abs(const G2P& p) {
-  G2P acc = g2_identity();
-#pragma unroll 1
-  for (int b = (int)KC.x_bits - 1; b >= 0; --b) {
-    acc = g2_add(acc, acc);
-    if (exp_bit(KC.xabs, (uint32_t)b)) acc = g2_add(acc, p);
-  }
-  return acc;
-}
-
-LH_FN G2P g2_psi(const G2P& p) {
-  return {fp2_mul(KC.PSI_CX, fp2_conj(p.X)), fp2_mul(KC.PSI_CY, fp2_conj(p.Y)),
-          fp2_conj(p.Z)};
-}
-
-// Budroni-Pintore: ([x^2]P - [x]P - P) + psi([x]P - P) + psi^2([2]P)
-LH_NI G2P clear_cofactor(const G2P& p) {
-  G2P t1 = g2_neg(g2_mul_x_abs(p));
-  G2P t2 = g2_neg(g2_mul_x_abs(t1));
-  G2P acc = g2_add(t2, g2_neg(t1));
-  acc = g2_add(acc, g2_neg(p));
-  acc = g2_add(acc, g2_psi(g2_add(t1, g2_neg(p))));
-  return g2_add(acc, g2_psi(g2_psi(g2_add(p, p))));
-}
-
-// One u lane: SSWU then the isogeny.
-LH_FN G2P hash_lane(const Fp2& t) {
-  Fp2 x, y;
-  sswu_map(t, x, y);
-  return iso_map_proj(x, y);
-}
-
-// One message: q(u0) + q(u1), cofactor clearing, affine (x, y).
-LH_NI void hash_finish(const G2P& q0, const G2P& q1, Fp2& xa, Fp2& ya) {
-  G2P p = clear_cofactor(g2_add(q0, q1));
-  Fp2 zi = fp2_inv(p.Z);
-  xa = fp2_mul(p.X, zi);
-  ya = fp2_mul(p.Y, zi);
-}
-
 // --- the general batch verify -----------------------------------------------
 
 // Prepare, one set: its K key slots summed in k order from the identity
@@ -759,46 +697,249 @@ LH_FN int sigma_combine_lane(const int32_t* part, long long m, int C,
 }
 
 // ---------------------------------------------------------------------------
-// Cooperative tower arithmetic: the threads of one block share each step
+// Cooperative tower arithmetic: the threads of a group share each step
 // ---------------------------------------------------------------------------
 //
 // A tower product is a few phases: pre-additions, ONE wave of its
 // independent Montgomery products (54 for an Fq12 product), post-additions.
-// A phase is a function of (tid, shared state) that every thread of the
-// block runs, followed by a barrier; its work items are spread over the
-// threads, item i on thread i mod LH_COOP_THREADS.  A runner executes the
-// phases: BlockRun on the card (the phase on threadIdx.x, then
-// __syncthreads), HostRun in a plain C++ build (the phase for tid = 0 ...
-// T-1 in a loop), so a host build runs the very arithmetic the card runs.
-// An item never reads what another item of its phase writes.  Each item
-// computes its coefficient with the serial formulas above (fp2_mul,
-// fp6_mul, fp12_mul, fp2_inv, ...) on the same operands, so every value is
-// the serial one limb for limb.  A dependent chain of Fq12 steps then
-// costs one wave of products per step (plus its additions and barriers),
-// not 54 products in a row.
+// A phase is a function of (tid, shared state) that every thread of a
+// group of G threads runs, followed by the group's barrier; its work items
+// are spread over the group, item i on thread i mod G.  A runner executes
+// the phases: GroupRun on the card (the phase on the thread's index in its
+// group, then the group's barrier: __syncwarp for G = 32, a named barrier
+// ``bar.sync id, G`` for a group of 64 or 128 threads, __syncthreads where
+// the group is the whole block), HostRun in a plain C++ build (the phase for
+// each tid of 0 ... G-1 in a loop, in one of three orders), so a host build
+// runs the card's arithmetic (its raw additions as C loops, the same bits as
+// the card's PTX chains).  An item never reads what another item of its
+// phase writes; a host build run in every order checks that.
+// Each item computes its value with the serial formulas above (fp2_mul,
+// fp6_mul, fp12_mul, fp2_inv, g2_add, ...) on the same operands in the same
+// order, so every value is the serial one limb for limb.  A dependent chain
+// of tower steps then costs one wave of products per step (plus its
+// additions and barriers), not the step's products in a row.  Finalize runs
+// one group of LH_COOP_THREADS (the block); Miller+fold and hash-to-G2 run
+// many small groups per block, one per lane pair or message.  Measured on
+// the H100 (the phase profile of probe_group_kernels.py): a dependent
+// addition costs about a twentieth of a product, and a phase costs the serial
+// sum of every item kind its warp holds, so the items of a phase share one
+// code path where they can (selected operands and destinations), and the big
+// item helpers are __noinline__, one copy each.
 
-#define LH_COOP_THREADS 256
+#define LH_COOP_THREADS 256  // finalize's group: the whole block
 #define LH_COOP_BATCH 8      // Fq12 products per cooperative step
 
 #if defined(__CUDACC__)
-struct BlockRun {
+template <int G>
+struct GroupRun {
+  static constexpr int G_ = G;
+  int t;    // this thread's index in its group
+  int bar;  // 0: the group is the block; else its named barrier (1..15)
   template <class F>
   LH_MFN void operator()(F&& phase) const {
-    phase((int)threadIdx.x);
-    __syncthreads();
+    phase(t);
+    if (G == 32) {
+      __syncwarp();
+    } else if (bar == 0) {
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(G) : "memory");
+    }
   }
 };
 #else
+// order 0 runs a phase's threads 0 ... G-1, 1 runs G-1 ... 0, 2 one fixed
+// shuffle: an item that reads what another item of its phase writes gives
+// a different value in some order.
+template <int G>
 struct HostRun {
+  static constexpr int G_ = G;
+  int perm[G];
+  explicit HostRun(int order = 0) {
+    for (int t = 0; t < G; ++t) perm[t] = order == 1 ? G - 1 - t : t;
+    uint32_t s = 0x9e3779b9u;
+    for (int t = G - 1; order == 2 && t > 0; --t) {   // Fisher-Yates
+      s = s * 1664525u + 1013904223u;
+      const int j = (int)((s >> 8) % (uint32_t)(t + 1)), x = perm[t];
+      perm[t] = perm[j];
+      perm[j] = x;
+    }
+  }
   template <class F>
   void operator()(F&& phase) const {
-    for (int t = 0; t < LH_COOP_THREADS; ++t) phase(t);
+    for (int t = 0; t < G; ++t) phase(perm[t]);
   }
 };
 #endif
 
-#define LH_ITEMS(i, tid, n) \
-  for (int i = (tid); i < (n); i += LH_COOP_THREADS)
+// Items i < n of a phase, strided over the group (inside a template whose
+// runner type is ``Run``).
+#define LH_ITEMS(i, tid, n) for (int i = (tid); i < (n); i += Run::G_)
+// List t of a phase whose lists take different branches: all of it on warp
+// t mod (G/32) of the group, so a warp does not run several kinds of item
+// one after the other.
+#define LH_LIST(i, tid, n, t)                  \
+  if (((tid) >> 5) == (t) % (Run::G_ >> 5))    \
+    for (int i = (tid)&31; i < (n); i += 32)
+
+// Operands of Karatsuba product t (m0 = a0 b0, m1 = a1 b1, m2 = (a0 + a1)
+// (b0 + b1)) of fp2_mul(x, y) (a square adds once), and fp2_mul's value
+// from m0 m1 m2.
+LH_FN void kara_opnd(const Fp2& x, const Fp2& y, int t, Fp& a, Fp& b) {
+  if (t == 2) {
+    a = fp_add(x.c0, x.c1);
+    b = &x == &y ? a : fp_add(y.c0, y.c1);
+  } else {
+    a = t ? x.c1 : x.c0;
+    b = t ? y.c1 : y.c0;
+  }
+}
+LH_FN Fp2 kara_post(const Fp* m) {
+  return {fp_sub(m[0], m[1]), fp_sub(m[2], fp_add(m[0], m[1]))};
+}
+
+// Coefficient c of fp6_mul's value from its six Fq2 products v0 v1 v2 v01
+// v12 v02, and coefficient (h, c) of fp12_mul's value from its three Fq6
+// products v00 v11 vxx: the serial formulas as one code path with selects
+// (a - b is a + (-b) bit for bit: fp_sub adds 2N - b as fp_neg makes it).
+//   c0 = v0 + xi(v12 - (v1 + v2)), c1 = (v01 - (v0 + v1)) + xi(v2),
+//   c2 = (v02 - (v0 + v2)) + v1;
+//   (v00 + v v11).c = v00.c + (c ? v11.c[c-1] : xi(v11.c2)),
+//   (vxx - (v00 + v11)).c = vxx.c + -(v00.c + v11.c).
+LH_FN Fp2 fp6_post(const Fp2* v, int c) {
+  const Fp2 t = fp2_sub(v[c == 0 ? 4 : c == 1 ? 3 : 5],
+                        fp2_add(v[c == 0 ? 1 : 0], v[c == 1 ? 1 : 2]));
+  const Fp2 xs = fp2_mul_by_xi(c == 0 ? t : v[2]);
+  return fp2_add(c == 0 ? v[0] : t, c == 2 ? v[1] : xs);
+}
+LH_FN Fp2 fp12_post(const Fp6* v, int h, int c) {
+  const Fp2 sum = fp2_add(v[0].c[c], v[1].c[c]);
+  const Fp2 xs = fp2_mul_by_xi(v[1].c[2]);
+  return fp2_add(v[h ? 2 : 0].c[c],
+                 h ? fp2_neg(sum) : c ? v[1].c[c - 1] : xs);
+}
+
+// Component k of Fq2 coefficient i of fp12_mul's Fq6 operand h (a0, a1,
+// a0 + a1), and of fp6_mul's Fq2 operand j on it (c0, c1, c2, c0 + c1,
+// c1 + c2, c0 + c2).
+LH_FN Fp fp12_opnd6(const Fp12& a, int h, int i, int k) {
+  const Fp& u = k ? a.c[0].c[i].c1 : a.c[0].c[i].c0;
+  const Fp& v = k ? a.c[1].c[i].c1 : a.c[1].c[i].c0;
+  if (h == 2) return fp_add(u, v);
+  return h ? v : u;
+}
+LH_FN Fp fp12_opnd2(const Fp12& a, int h, int j, int k) {
+  if (j < 3) return fp12_opnd6(a, h, j, k);
+  return fp_add(fp12_opnd6(a, h, j == 5 ? 0 : j - 3, k),
+                fp12_opnd6(a, h, j == 3 ? 1 : 2, k));
+}
+LH_FN Fp fp12_opnd(const Fp12& a, int h, int j, int t) {
+  return t < 2 ? fp12_opnd2(a, h, j, t)
+               : fp_add(fp12_opnd2(a, h, j, 0), fp12_opnd2(a, h, j, 1));
+}
+// Operands of Montgomery product r < 54 of fp12_mul(a, b): Fq6 product
+// r / 18, its Fq2 product r % 18 / 3, Karatsuba product r % 3.  Each item
+// recomputes the serial pre-additions it needs; a square (a and b one
+// object) computes its operand once.
+LH_NI void fp12_mul_opnd(const Fp12& a, const Fp12& b, int r, Fp& x, Fp& y) {
+  const int h = r / 18, j = r % 18 / 3, t = r % 3;
+  x = fp12_opnd(a, h, j, t);
+  y = &a == &b ? x : fp12_opnd(b, h, j, t);
+}
+
+// --- the RCB addition p + q as two waves of six Fq2 products ----------------
+
+// Coordinate c (X, Y, Z) of p, or of -p where neg.
+LH_FN Fp2 g2_coord(const G2P& p, int c, bool neg) {
+  return c == 0 ? p.X : c == 2 ? p.Z : neg ? fp2_neg(p.Y) : p.Y;
+}
+// Product r < 18 of the first wave: t0 = X X', t1 = Y Y', t2 = Z Z', pxy,
+// pyz, pxz (Karatsuba product r % 3).  A doubling (p and q one point)
+// computes its operand once.
+LH_NI void g2_add_opnd1(const G2P& p, bool np, const G2P& q, bool nq, int r,
+                        Fp& a, Fp& b) {
+  const int k = r / 3;
+  auto side = [k](const G2P& s, bool n) -> Fp2 {
+    if (k < 3) return g2_coord(s, k, n);
+    return fp2_add(g2_coord(s, k == 5 ? 0 : k - 3, n),    // X+Y, Y+Z, X+Z
+                   g2_coord(s, k == 3 ? 1 : 2, n));
+  };
+  const Fp2 x = side(p, np);
+  if (&p == &q && np == nq) {
+    kara_opnd(x, x, r % 3, a, b);
+  } else {
+    const Fp2 y = side(q, nq);
+    kara_opnd(x, y, r % 3, a, b);
+  }
+}
+// Middle value k (s3 s4 s5 um up t0) from the first wave's products m:
+// s = p - (u + v) for pxy pyz pxz, t1 -/+ b3(t2), t0; one code path but
+// for the branch between the sum and b3 (a - b as a + (-b), as above).
+LH_NI Fp2 g2_add_mid(const Fp* m, int k) {
+  const Fp2 a = kara_post(m + 3 * (k < 3 ? 3 + k : k < 5 ? 1 : 0));
+  if (k == 5) return a;
+  const Fp2 b = k < 3 ? fp2_add(kara_post(m + 3 * (k == 1 ? 1 : 0)),
+                                kara_post(m + 3 * (k == 0 ? 1 : 2)))
+                      : g2_b3(kara_post(m + 6));
+  return fp2_add(a, k == 4 ? b : fp2_neg(b));
+}
+// Product r < 18 of the second wave: s3 um, s4 s5, up um, t0 s5, s4 up,
+// t0 s3, on the middle values mid.
+LH_NI void g2_add_opnd2(const Fp2* mid, int r, Fp& a, Fp& b) {
+  const int k = r / 3;
+  kara_opnd(mid[(0x515410 >> (4 * k)) & 0xF], mid[(0x042323 >> (4 * k)) & 0xF],
+            r % 3, a, b);
+}
+// Coordinate k (X Y Z) of p + q from the second wave's products m: X =
+// s3um - b3(s4s5), Y = upum + 3 b3(t0s5), Z = s4up + 3 t0s3.
+LH_NI Fp2 g2_add_out(const Fp* m, int k) {
+  const Fp2 v = kara_post(m + 6 * k);
+  Fp2 w = kara_post(m + 6 * k + 3);
+  if (k < 2) w = g2_b3(w);
+  if (k > 0) w = fp2_muls(w, 3);
+  return fp2_add(v, k == 0 ? fp2_neg(w) : w);
+}
+
+// One wave of n Montgomery products over the group: item i takes its
+// operands from opnd(i, a, b) and hands its product to put(i, r); every
+// item calls fp_mul once, whatever branch chose its operands.  Then the
+// phase runs extra(tid): items that neither read nor write what the
+// products do.
+template <class Run, class Opnd, class Put, class Extra>
+LH_FN void coop_wave(const Run& run, int n, Opnd opnd, Put put, Extra extra) {
+  run([&](int tid) {
+    LH_ITEMS(i, tid, n) {
+      Fp a, b;
+      opnd(i, a, b);
+      put(i, fp_mul(a, b));
+    }
+    extra(tid);
+  });
+}
+template <class Run, class Opnd, class Put>
+LH_FN void coop_wave(const Run& run, int n, Opnd opnd, Put put) {
+  coop_wave(run, n, opnd, put, [](int) {});
+}
+
+// After a wave of n Fq12 products (product q's 54 at M + q*stride): their
+// Fq2 values (V, 18 each), Fq6 values (W, 3 each), and coefficient (h, c)
+// of product q handed to out(q, h, c, value).
+template <class Run, class Out>
+LH_FN void coop_fp12_post(const Run& run, const Fp* M, Fp2* V, Fp6* W, int n,
+                          int stride, Out out) {
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 18 * n) V[i] = kara_post(M + i / 18 * stride + 3 * (i % 18));
+  });
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 9 * n) W[i / 3].c[i % 3] = fp6_post(V + 6 * (i / 3), i % 3);
+  });
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 6 * n) {
+      const int q = i / 6, h = i % 6 / 3, c = i % 3;
+      out(q, h, c, fp12_post(W + 3 * q, h, c));
+    }
+  });
+}
 
 // Scratch of one step: up to LH_COOP_BATCH Fq12 products, i.e. three times
 // as many Fq6 products, 18 times as many Fq2 and 54 times as many Fq ones,
@@ -833,10 +974,7 @@ LH_NI void coop_fp2_mul(const Run& run, CoopBuf& s, int n) {
     }
   });
   run([&](int tid) {
-    LH_ITEMS(k, tid, n) {
-      const Fp* m = s.M + 3 * k;
-      s.X[k] = {fp_sub(m[0], m[1]), fp_sub(m[2], fp_add(m[0], m[1]))};
-    }
+    LH_ITEMS(k, tid, n) s.X[k] = kara_post(s.M + 3 * k);
   });
 }
 
@@ -854,14 +992,8 @@ LH_NI void coop_fp6_mul(const Run& run, CoopBuf& s, int n) {
   });
   coop_fp2_mul(run, s, 6 * n);
   run([&](int tid) {
-    LH_ITEMS(i, tid, 3 * n) {
-      const int k = i / 3, c = i % 3;
-      const Fp2* v = s.X + 6 * k;
-      s.W6[k].c[c] =
-          c == 0 ? fp2_add(v[0], fp2_mul_by_xi(fp2_sub(v[4], fp2_add(v[1], v[2]))))
-        : c == 1 ? fp2_add(fp2_sub(v[3], fp2_add(v[0], v[1])), fp2_mul_by_xi(v[2]))
-                 : fp2_add(fp2_sub(v[5], fp2_add(v[0], v[2])), v[1]);
-    }
+    LH_ITEMS(i, tid, 3 * n)
+      s.W6[i / 3].c[i % 3] = fp6_post(s.X + 6 * (i / 3), i % 3);
   });
 }
 
@@ -881,11 +1013,7 @@ LH_NI void coop_fp12_mul(const Run& run, CoopBuf& s, Fp12* d, const Fp12* a,
   run([&](int tid) {
     LH_ITEMS(i, tid, 6 * n) {      // (v00 + v11 v, vxx - (v00 + v11))
       const int k = i / 6, h = i % 6 / 3, c = i % 3;
-      const Fp6* v = s.W6 + 3 * k;
-      d[k].c[h].c[c] =
-          h == 0 ? fp2_add(v[0].c[c], c == 0 ? fp2_mul_by_xi(v[1].c[2])
-                                             : v[1].c[c - 1])
-                 : fp2_sub(v[2].c[c], fp2_add(v[0].c[c], v[1].c[c]));
+      d[k].c[h].c[c] = fp12_post(s.W6 + 3 * k, h, c);
     }
   });
 }
@@ -1062,5 +1190,555 @@ LH_FN void finalize_body(const Run& run, FinShared& sh, const int32_t* f,
   run([&](int tid) {
     if (tid == 0) ok[0] = fp12_is_one(r) ? 1 : 0;
     LH_ITEMS(b, tid, 12) store_fp(g, 1, 0, b, fp12_block(r, b));
+  });
+}
+
+// Threads a group (G) and groups a block of the two group kernels, chosen
+// by the launch-shape table of probe_group_kernels.py on the H100
+// (PERF.md), and the most threads a block of them may have.
+#define LH_GROUP_BLOCK_MAX 256
+#define LH_MILLER_G 64
+#define LH_MILLER_GROUPS 2
+#define LH_HASH_G 32
+#define LH_HASH_GROUPS 2
+
+// ---------------------------------------------------------------------------
+// Miller loop + fold: one group per lane pair (j, j + 128) of a 256-lane cell
+// ---------------------------------------------------------------------------
+//
+// The conjugated Miller loop of each live lane of the pair (miller_loop's
+// formulas: a dead lane skips it and is Fq12 ONE), then f_j * f_{j+128}.
+// A doubling step is four waves of products for both live lanes at once:
+//   W1  f*f beside the line's XX YY ZZ and g2_add(T, T)'s first wave
+//   W2  X*XX, YY*Z, XX*Z, Y*ZZ beside g2_add's second wave
+//   W3  B = -(3 X2Z)*xP, C = (2 YZ2)*yP into the dense line
+//   W4  (f*f)*line
+// and an addition step three (Q.Y*T.Z, Q.X*T.Z and g2_add(T, Q)'s first
+// wave; Nn*Q.X, Q.Y*Dd, Nn*xP, Dd*yP and the second wave; f*line).  The
+// line stays the dense Fq12 of line_fp12.
+
+struct MillerLane {
+  Fp12 f, l;         // the Miller value; the line (A, B, 0; 0, C, 0)
+  G2P T, Q;          // Q = (Qx, Qy, 1)
+  Fp xP, yP;
+  Fp2 sq[3];         // XX YY ZZ of a doubling step
+  Fp2 mid[6];        // g2_add's middle values
+  Fp2 Nn, Dd;        // the addition step's line values
+};
+
+struct MillerShared {
+  MillerLane L[2];   // lane j, lane j + 128
+  Fp M[2 * 81];      // the products of one wave (81 a lane at most)
+  Fp2 V[2 * 18];     // Fq2 values of the Fq12 products
+  Fp6 W[2 * 3];      // their Fq6 values
+  int live[2], nl;   // the live lanes of the pair
+};
+
+// f <- f^2 * l_{T,T}(P), T <- 2T for the live lanes (miller_dbl).
+template <class Run>
+LH_NI void miller_dbl_group(const Run& run, MillerShared& sh) {
+  const int nl = sh.nl;
+  auto lane = [&](int q) -> MillerLane& { return sh.L[sh.live[q]]; };
+  auto to_m = [&](int i, const Fp& r) { sh.M[i] = r; };
+  coop_wave(run, 81 * nl, [&](int i, Fp& a, Fp& b) {
+    const MillerLane& L = lane(i / 81);
+    const int r = i % 81;
+    if (r < 54) {
+      fp12_mul_opnd(L.f, L.f, r, a, b);
+    } else if (r < 63) {
+      const Fp2& c = r < 57 ? L.T.X : r < 60 ? L.T.Y : L.T.Z;
+      kara_opnd(c, c, r % 3, a, b);
+    } else {
+      g2_add_opnd1(L.T, false, L.T, false, r - 63, a, b);
+    }
+  }, to_m);
+  run([&](int tid) {
+    LH_LIST(i, tid, 18 * nl, 0)
+      sh.V[i] = kara_post(sh.M + i / 18 * 81 + 3 * (i % 18));
+    LH_LIST(i, tid, 3 * nl, 1)
+      lane(i / 3).sq[i % 3] = kara_post(sh.M + i / 3 * 81 + 54 + 3 * (i % 3));
+    LH_LIST(i, tid, 6 * nl, 2)
+      lane(i / 6).mid[i % 6] = g2_add_mid(sh.M + i / 6 * 81 + 63, i % 6);
+  });
+  coop_wave(run, 30 * nl, [&](int i, Fp& a, Fp& b) {
+    const MillerLane& L = lane(i / 30);
+    const int r = i % 30, k = r / 3;
+    if (r < 12) {    // X3 = X XX, Y2Z = YY Z, X2Z = XX Z, YZ2 = Y ZZ
+      kara_opnd(k == 0 ? L.T.X : k == 1 ? L.sq[1] : k == 2 ? L.sq[0] : L.T.Y,
+                k == 0 ? L.sq[0] : k == 3 ? L.sq[2] : L.T.Z, r % 3, a, b);
+    } else {
+      g2_add_opnd2(L.mid, r - 12, a, b);
+    }
+  }, to_m, [&](int tid) {
+    LH_LIST(i, tid, 9 * nl, 3)
+      sh.W[i / 3].c[i % 3] = fp6_post(sh.V + 6 * (i / 3), i % 3);
+  });
+  coop_wave(run, 4 * nl, [&](int i, Fp& a, Fp& b) {
+    const MillerLane& L = lane(i / 4);
+    const int r = i % 4;
+    const Fp2 v = kara_post(sh.M + i / 4 * 30 + (r < 2 ? 6 : 9));  // X2Z, YZ2
+    a = fp_muls(r & 1 ? v.c1 : v.c0, r < 2 ? 3 : 2);
+    b = r < 2 ? L.xP : L.yP;
+  }, [&](int i, const Fp& r) {
+    Fp2& c = i % 4 < 2 ? lane(i / 4).l.c[0].c[1] : lane(i / 4).l.c[1].c[1];
+    if (i % 4 < 2) (i & 1 ? c.c1 : c.c0) = fp_neg(r);
+    else (i & 1 ? c.c1 : c.c0) = r;
+  }, [&](int tid) {  // f <- f*f; T <- 2T; A = 3 X3 - 2 Y2Z
+    LH_LIST(i, tid, 6 * nl, 1) {
+      const int h = i % 6 / 3, c = i % 3;
+      lane(i / 6).f.c[h].c[c] = fp12_post(sh.W + 3 * (i / 6), h, c);
+    }
+    LH_LIST(i, tid, 3 * nl, 2) {
+      G2P& T = lane(i / 3).T;
+      (i % 3 == 0 ? T.X : i % 3 == 1 ? T.Y : T.Z) =
+          g2_add_out(sh.M + i / 3 * 30 + 12, i % 3);
+    }
+    LH_LIST(i, tid, nl, 3) {
+      const Fp* m = sh.M + i * 30;
+      lane(i).l.c[0].c[0] = fp2_sub(fp2_muls(kara_post(m), 3),
+                                    fp2_muls(kara_post(m + 3), 2));
+    }
+  });
+  coop_wave(run, 54 * nl, [&](int i, Fp& a, Fp& b) {
+    const MillerLane& L = lane(i / 54);
+    fp12_mul_opnd(L.f, L.l, i % 54, a, b);
+  }, to_m);
+  coop_fp12_post(run, sh.M, sh.V, sh.W, nl, 54,
+                 [&](int q, int h, int c, const Fp2& v) {
+                   lane(q).f.c[h].c[c] = v;
+                 });
+}
+
+// f <- f * l_{T,Q}(P), T <- T + Q for the live lanes (miller_add).
+template <class Run>
+LH_NI void miller_add_group(const Run& run, MillerShared& sh) {
+  const int nl = sh.nl;
+  auto lane = [&](int q) -> MillerLane& { return sh.L[sh.live[q]]; };
+  auto to_m = [&](int i, const Fp& r) { sh.M[i] = r; };
+  coop_wave(run, 24 * nl, [&](int i, Fp& a, Fp& b) {
+    const MillerLane& L = lane(i / 24);
+    const int r = i % 24;
+    if (r < 6) kara_opnd(r < 3 ? L.Q.Y : L.Q.X, L.T.Z, r % 3, a, b);
+    else g2_add_opnd1(L.T, false, L.Q, false, r - 6, a, b);
+  }, to_m);
+  run([&](int tid) {  // Nn = Q.Y T.Z - T.Y, Dd = Q.X T.Z - T.X; g2_add's middle
+    LH_LIST(i, tid, 2 * nl, 0) {
+      MillerLane& L = lane(i / 2);
+      const Fp2 v = kara_post(sh.M + i / 2 * 24 + 3 * (i % 2));
+      if (i % 2) L.Dd = fp2_sub(v, L.T.X);
+      else L.Nn = fp2_sub(v, L.T.Y);
+    }
+    LH_LIST(i, tid, 6 * nl, 1)
+      lane(i / 6).mid[i % 6] = g2_add_mid(sh.M + i / 6 * 24 + 6, i % 6);
+  });
+  coop_wave(run, 28 * nl, [&](int i, Fp& a, Fp& b) {
+    const MillerLane& L = lane(i / 28);
+    const int r = i % 28;
+    if (r < 6) {     // Nn Q.X, Q.Y Dd
+      kara_opnd(r < 3 ? L.Nn : L.Q.Y, r < 3 ? L.Q.X : L.Dd, r % 3, a, b);
+    } else if (r < 24) {
+      g2_add_opnd2(L.mid, r - 6, a, b);
+    } else {         // Nn xP, Dd yP
+      const Fp2& v = r < 26 ? L.Nn : L.Dd;
+      a = r & 1 ? v.c1 : v.c0;
+      b = r < 26 ? L.xP : L.yP;
+    }
+  }, [&](int i, const Fp& r) {
+    const int k = i % 28;
+    Fp12& l = lane(i / 28).l;
+    if (k < 24) sh.M[i] = r;
+    else if (k < 26) (k & 1 ? l.c[0].c[1].c1 : l.c[0].c[1].c0) = fp_neg(r);
+    else (k & 1 ? l.c[1].c[1].c1 : l.c[1].c[1].c0) = r;
+  });
+  run([&](int tid) {  // T <- T + Q; A = Nn Q.X - Q.Y Dd
+    LH_LIST(i, tid, 3 * nl, 0) {
+      G2P& T = lane(i / 3).T;
+      (i % 3 == 0 ? T.X : i % 3 == 1 ? T.Y : T.Z) =
+          g2_add_out(sh.M + i / 3 * 28 + 6, i % 3);
+    }
+    LH_LIST(i, tid, nl, 1) {
+      const Fp* m = sh.M + i * 28;
+      lane(i).l.c[0].c[0] = fp2_sub(kara_post(m), kara_post(m + 3));
+    }
+  });
+  coop_wave(run, 54 * nl, [&](int i, Fp& a, Fp& b) {
+    const MillerLane& L = lane(i / 54);
+    fp12_mul_opnd(L.f, L.l, i % 54, a, b);
+  }, to_m);
+  coop_fp12_post(run, sh.M, sh.V, sh.W, nl, 54,
+                 [&](int q, int h, int c, const Fp2& v) {
+                   lane(q).f.c[h].c[c] = v;
+                 });
+}
+
+// The pair ``pair`` (cell pair / 128, lane j = pair % 128) of the (64, m)
+// g1, (128, m) g2 and (1, m) mask planes: both lanes' Miller values (ONE
+// where the mask is 0), their product stored at column ``pair`` of the
+// (384, m/2) output.
+template <class Run>
+LH_FN void miller_fold_body(const Run& run, MillerShared& sh,
+                            const int32_t* g1, const int32_t* g2,
+                            const int32_t* mask, int32_t* out, long long m,
+                            long long pair) {
+  const long long base = pair / LH_LANES * 2 * LH_LANES + pair % LH_LANES;
+  run([&](int tid) {
+    LH_ITEMS(q, tid, 2) {
+      const long long lane = base + q * LH_LANES;
+      MillerLane& L = sh.L[q];
+      L.xP = load_fp(g1, m, lane, 0);
+      L.yP = load_fp(g1, m, lane, 1);
+      L.Q = {load_fp2(g2, m, lane, 0), load_fp2(g2, m, lane, 2), fp2_one()};
+      L.T = L.Q;
+      L.f = fp12_one();
+      L.l = line_fp12(fp2_zero(), fp2_zero(), fp2_zero());
+    }
+    if (tid == 0) {
+      sh.nl = 0;
+      for (int q = 0; q < 2; ++q)
+        if (mask[base + q * LH_LANES] != 0) sh.live[sh.nl++] = q;
+    }
+  });
+  if (sh.nl) {
+#pragma unroll 1
+    for (int b = (int)KC.x_bits - 2; b >= 0; --b) {
+      miller_dbl_group(run, sh);
+      if (exp_bit(KC.xabs, (uint32_t)b)) miller_add_group(run, sh);
+    }
+    run([&](int tid) {    // conjugate: x < 0
+      LH_ITEMS(i, tid, 3 * sh.nl) {
+        Fp2& c = sh.L[sh.live[i / 3]].f.c[1].c[i % 3];
+        c = fp2_neg(c);
+      }
+    });
+  }
+  coop_wave(run, 54, [&](int i, Fp& a, Fp& b) {
+    fp12_mul_opnd(sh.L[0].f, sh.L[1].f, i, a, b);
+  }, [&](int i, const Fp& r) { sh.M[i] = r; });
+  coop_fp12_post(run, sh.M, sh.V, sh.W, 1, 54,
+                 [&](int, int h, int c, const Fp2& v) {
+                   store_fp2(out, m / 2, pair, 2 * (3 * h + c), v);
+                 });
+}
+
+// ---------------------------------------------------------------------------
+// Hash to G2: one group per message
+// ---------------------------------------------------------------------------
+//
+// u0 and u1 side by side through the simplified SWU map onto E' (the
+// branchless 8-candidate square root; both branches of the QR select are
+// computed and the right one kept) and the 3-isogeny, then q(u0) + q(u1),
+// Budroni-Pintore cofactor clearing and the affine point, one wave of
+// products per step.  The formulas are the plain version's
+// (crypto/htc_kernel.py: k_sswu_map, k_fq2_pow_e16, k_iso_map_proj,
+// k_clear_cofactor, fq2_inv) in its order.  The Fermat ladders of the two
+// inversions stay one thread's serial chain.
+
+struct HashLane {    // one u value
+  Fp2 t, tt, tv1, tv2, tv1t, x1, x1sq, ax1, tv1x1, gx1, zgx1, res, base;
+  Fp2 cand[8], y1, s, x, y;
+  Fp2 x2, x3, xn, xd, yp, yd, yn;
+  G2P q;             // its point on E, projective
+  Fp ni;
+  int sgn_t, d_zero, is_qr, ok[8];
+};
+
+struct HashShared {
+  HashLane L[2];     // u0, u1
+  G2P p, acc, t1, u;
+  Fp2 mid[6], zi;
+  Fp M[54];          // the products of one wave (27 a lane at most)
+  Fp ni;
+};
+
+// RFC 9380 sgn0 over Fq2 from the two mont_mul(c, 1) products of an
+// element (its canonical value, minus N where it is above).
+LH_FN int sgn0_of(const Fp& m0, const Fp& m1) {
+  const Fp c0 = fp_cond_sub(m0, KC.N), c1 = fp_cond_sub(m1, KC.N);
+  const uint32_t z0 = fp_eq(c0, fp_zero()) ? 1u : 0u;
+  return (int)((c0.w[0] & 1u) | (z0 & (c1.w[0] & 1u)));
+}
+
+// A wave of ``per`` products for each u lane, product r of lane q from
+// opnd(L, r, a, b) into M[q*per + r]; then ``n`` items a lane,
+// post(L, m, k) with m the lane's products.
+template <class Run, class Opnd>
+LH_FN void hash_wave(const Run& run, HashShared& sh, int per, Opnd opnd) {
+  coop_wave(run, 2 * per, [&](int i, Fp& a, Fp& b) {
+    opnd((const HashLane&)sh.L[i / per], i % per, a, b);
+  }, [&](int i, const Fp& r) { sh.M[i] = r; });
+}
+template <class Run, class Post>
+LH_FN void hash_post(const Run& run, HashShared& sh, int per, int n, Post post) {
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 2 * n) post(sh.L[i / n], sh.M + i / n * per, i % n);
+  });
+}
+
+// SSWU then the isogeny for both u lanes: L.t -> L.q.
+template <class Run>
+LH_NI void hash_map_group(const Run& run, HashShared& sh) {
+  // tt = t^2; t's canonical words for sgn0(t)
+  hash_wave(run, sh, 5, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    if (r < 3) {
+      kara_opnd(L.t, L.t, r, a, b);
+    } else {
+      a = r == 3 ? L.t.c0 : L.t.c1;
+      b = KC.RAW_ONE;
+    }
+  });
+  hash_post(run, sh, 5, 2, [](HashLane& L, const Fp* m, int k) {
+    if (k == 0) L.tt = kara_post(m);
+    else L.sgn_t = sgn0_of(m[3], m[4]);
+  });
+  // tv1 = Z t^2
+  hash_wave(run, sh, 3, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    kara_opnd(KC.H_Z, L.tt, r, a, b);
+  });
+  hash_post(run, sh, 3, 1,
+            [](HashLane& L, const Fp* m, int) { L.tv1 = kara_post(m); });
+  // tv2 = tv1^2 + tv1, and tv1 t
+  hash_wave(run, sh, 6, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    kara_opnd(L.tv1, r < 3 ? L.tv1 : L.t, r % 3, a, b);
+  });
+  hash_post(run, sh, 6, 2, [](HashLane& L, const Fp* m, int k) {
+    if (k == 0) {
+      L.tv2 = fp2_add(kara_post(m), L.tv1);
+      L.d_zero = fp2_is_zero(L.tv2);
+    } else {
+      L.tv1t = kara_post(m + 3);
+    }
+  });
+  // 1/tv2 (fp2_inv): the norm's squares, the Fermat ladder, the products
+  hash_wave(run, sh, 2, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    a = b = r ? L.tv2.c1 : L.tv2.c0;
+  });
+  run([&](int tid) {
+    LH_ITEMS(q, tid, 2) sh.L[q].ni = fp_inv(fp_add(sh.M[2 * q], sh.M[2 * q + 1]));
+  });
+  hash_wave(run, sh, 2, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    a = r ? fp_neg(L.tv2.c1) : L.tv2.c0;
+    b = L.ni;
+  });
+  hash_post(run, sh, 2, 1, [](HashLane& L, const Fp* m, int) {
+    L.x1 = fp2_add(fp2_one(), Fp2{m[0], m[1]});
+  });
+  // x1 = NEGBA (1 + 1/tv2), the exceptional x1 where tv2 = 0
+  hash_wave(run, sh, 3, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    kara_opnd(KC.H_NEGBA, L.x1, r, a, b);
+  });
+  hash_post(run, sh, 3, 1, [](HashLane& L, const Fp* m, int) {
+    L.x1 = L.d_zero ? KC.H_X1EXC : kara_post(m);
+  });
+  // x1^2, A x1, tv1 x1
+  hash_wave(run, sh, 9, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    kara_opnd(r < 3 ? L.x1 : r < 6 ? KC.H_A : L.tv1, L.x1, r % 3, a, b);
+  });
+  hash_post(run, sh, 9, 3, [](HashLane& L, const Fp* m, int k) {
+    (k == 0 ? L.x1sq : k == 1 ? L.ax1 : L.tv1x1) = kara_post(m + 3 * k);
+  });
+  // gx1 = x1^3 + (A x1 + B)
+  hash_wave(run, sh, 3, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    kara_opnd(L.x1sq, L.x1, r, a, b);
+  });
+  hash_post(run, sh, 3, 1, [](HashLane& L, const Fp* m, int) {
+    L.gx1 = fp2_add(kara_post(m), fp2_add(L.ax1, KC.H_B));
+    L.res = fp2_one();
+    L.base = L.gx1;
+  });
+  // c = gx1^((p^2 + 7)/16), LSB first: res*base and base^2 in one wave
+#pragma unroll 1
+  for (uint32_t i = 0; i < KC.e16_bits; ++i) {
+    const int bit = (int)exp_bit(KC.e16, i), per = 3 + 3 * bit;
+    hash_wave(run, sh, per, [&](const HashLane& L, int r, Fp& a, Fp& b) {
+      kara_opnd(r < 3 && bit ? L.res : L.base, L.base, r % 3, a, b);
+    });
+    hash_post(run, sh, per, 1 + bit, [&](HashLane& L, const Fp* m, int k) {
+      *(k < bit ? &L.res : &L.base) = kara_post(m + 3 * k);
+    });
+  }
+  // the candidates c E8I[k], c TK[k], and Z gx1
+  hash_wave(run, sh, 27, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    const int k = r / 3;
+    kara_opnd(k < 8 ? L.res : KC.H_Z,
+              k < 4 ? KC.E8I[k] : k < 8 ? KC.TK[k - 4] : L.gx1, r % 3, a, b);
+  });
+  hash_post(run, sh, 27, 9, [](HashLane& L, const Fp* m, int k) {
+    (k < 8 ? L.cand[k] : L.zgx1) = kara_post(m + 3 * k);
+  });
+  // their squares against gx1 and Z gx1; the last match wins
+  hash_wave(run, sh, 24, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    kara_opnd(L.cand[r / 3], L.cand[r / 3], r % 3, a, b);
+  });
+  hash_post(run, sh, 24, 8, [](HashLane& L, const Fp* m, int k) {
+    L.ok[k] = fp2_eq(kara_post(m + 3 * k), k < 4 ? L.gx1 : L.zgx1);
+  });
+  hash_post(run, sh, 24, 1, [](HashLane& L, const Fp*, int) {
+    L.y1 = fp2_zero();
+    L.s = fp2_zero();
+    L.is_qr = 0;
+    for (int k = 0; k < 4; ++k) {
+      if (L.ok[k]) {
+        L.y1 = L.cand[k];
+        L.is_qr = 1;
+      }
+      if (L.ok[4 + k]) L.s = L.cand[4 + k];
+    }
+  });
+  // (x, y) = (x1, y1) where gx1 is square, else (tv1 x1, (tv1 t) s)
+  hash_wave(run, sh, 3, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    kara_opnd(L.tv1t, L.s, r, a, b);
+  });
+  hash_post(run, sh, 3, 1, [](HashLane& L, const Fp* m, int) {
+    L.x = L.is_qr ? L.x1 : L.tv1x1;
+    L.y = L.is_qr ? L.y1 : kara_post(m);
+  });
+  // sgn0(y) = sgn0(t)
+  hash_wave(run, sh, 2, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    a = r ? L.y.c1 : L.y.c0;
+    b = KC.RAW_ONE;
+  });
+  hash_post(run, sh, 2, 1, [](HashLane& L, const Fp* m, int) {
+    if (L.sgn_t != sgn0_of(m[0], m[1])) L.y = fp2_neg(L.y);
+  });
+  // the isogeny: x^2 and the x terms; x^3 and the x^2 terms; the x^3
+  // terms and XD YD; y YP and XN YD; YN XD
+  hash_wave(run, sh, 15, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    const int k = r / 3;
+    kara_opnd(k == 0 ? L.x : k == 1 ? KC.XN[1] : k == 2 ? KC.XD[1]
+                     : k == 3 ? KC.YN[1] : KC.YD[1], L.x, r % 3, a, b);
+  });
+  hash_post(run, sh, 15, 5, [](HashLane& L, const Fp* m, int k) {
+    const Fp2 v = kara_post(m + 3 * k);
+    if (k == 0) L.x2 = v;
+    else if (k == 1) L.xn = fp2_add(KC.XN[0], v);
+    else if (k == 2) L.xd = fp2_add(fp2_add(KC.XD[0], v), kara_post(m));
+    else if (k == 3) L.yp = fp2_add(KC.YN[0], v);
+    else L.yd = fp2_add(KC.YD[0], v);
+  });
+  hash_wave(run, sh, 12, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    const int k = r / 3;
+    kara_opnd(k == 0 ? L.x2 : k == 1 ? KC.XN[2] : k == 2 ? KC.YN[2] : KC.YD[2],
+              k == 0 ? L.x : L.x2, r % 3, a, b);
+  });
+  hash_post(run, sh, 12, 4, [](HashLane& L, const Fp* m, int k) {
+    const Fp2 v = kara_post(m + 3 * k);
+    if (k == 0) L.x3 = v;
+    else if (k == 1) L.xn = fp2_add(L.xn, v);
+    else if (k == 2) L.yp = fp2_add(L.yp, v);
+    else L.yd = fp2_add(fp2_add(L.yd, v), kara_post(m));
+  });
+  hash_wave(run, sh, 9, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    const int k = r / 3;
+    kara_opnd(k == 0 ? KC.XN[3] : k == 1 ? KC.YN[3] : L.xd,
+              k < 2 ? L.x3 : L.yd, r % 3, a, b);
+  });
+  hash_post(run, sh, 9, 3, [](HashLane& L, const Fp* m, int k) {
+    const Fp2 v = kara_post(m + 3 * k);
+    if (k == 0) L.xn = fp2_add(L.xn, v);
+    else if (k == 1) L.yp = fp2_add(L.yp, v);
+    else L.q.Z = v;
+  });
+  hash_wave(run, sh, 6, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    kara_opnd(r < 3 ? L.y : L.xn, r < 3 ? L.yp : L.yd, r % 3, a, b);
+  });
+  hash_post(run, sh, 6, 2, [](HashLane& L, const Fp* m, int k) {
+    (k ? L.q.X : L.yn) = kara_post(m + 3 * k);
+  });
+  hash_wave(run, sh, 3, [](const HashLane& L, int r, Fp& a, Fp& b) {
+    kara_opnd(L.yn, L.xd, r, a, b);
+  });
+  hash_post(run, sh, 3, 1,
+            [](HashLane& L, const Fp* m, int) { L.q.Y = kara_post(m); });
+}
+
+// p <- a + b (g2_add), a and b negated where na, nb; p may be a or b.
+template <class Run>
+LH_NI void coop_g2_add(const Run& run, HashShared& sh, G2P& p, const G2P& a,
+                       bool na, const G2P& b, bool nb) {
+  auto to_m = [&](int i, const Fp& r) { sh.M[i] = r; };
+  coop_wave(run, 18, [&](int i, Fp& x, Fp& y) {
+    g2_add_opnd1(a, na, b, nb, i, x, y);
+  }, to_m);
+  run([&](int tid) { LH_ITEMS(k, tid, 6) sh.mid[k] = g2_add_mid(sh.M, k); });
+  coop_wave(run, 18, [&](int i, Fp& x, Fp& y) { g2_add_opnd2(sh.mid, i, x, y); },
+            to_m);
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 3) (k == 0 ? p.X : k == 1 ? p.Y : p.Z) = g2_add_out(sh.M, k);
+  });
+}
+
+// p <- psi(p) = (PSI_CX conj(X), PSI_CY conj(Y), conj(Z)).
+template <class Run>
+LH_NI void coop_g2_psi(const Run& run, HashShared& sh, G2P& p) {
+  coop_wave(run, 6, [&](int i, Fp& x, Fp& y) {
+    kara_opnd(i < 3 ? KC.PSI_CX : KC.PSI_CY, fp2_conj(i < 3 ? p.X : p.Y),
+              i % 3, x, y);
+  }, [&](int i, const Fp& r) { sh.M[i] = r; });
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 3) {
+      if (k < 2) (k ? p.Y : p.X) = kara_post(sh.M + 3 * k);
+      else p.Z = fp2_conj(p.Z);
+    }
+  });
+}
+
+// acc <- [|x|] p, MSB first (p is not acc).
+template <class Run>
+LH_NI void coop_g2_mul_x_abs(const Run& run, HashShared& sh, G2P& acc,
+                             const G2P& p) {
+  run([&](int tid) {
+    if (tid == 0) acc = g2_identity();
+  });
+#pragma unroll 1
+  for (int b = (int)KC.x_bits - 1; b >= 0; --b) {
+    coop_g2_add(run, sh, acc, acc, false, acc, false);
+    if (exp_bit(KC.xabs, (uint32_t)b))
+      coop_g2_add(run, sh, acc, acc, false, p, false);
+  }
+}
+
+// Message ``msg`` (cell msg / 128, slot msg % 128) of the (64, m2) u plane:
+// its affine point stored at column ``msg`` of the (128, m2/2) output.
+template <class Run>
+LH_FN void hash_g2_body(const Run& run, HashShared& sh, const int32_t* u,
+                        int32_t* out, long long m2, long long msg) {
+  const long long base = msg / LH_LANES * 2 * LH_LANES + msg % LH_LANES;
+  run([&](int tid) {
+    LH_ITEMS(q, tid, 2) sh.L[q].t = load_fp2(u, m2, base + q * LH_LANES, 0);
+  });
+  hash_map_group(run, sh);
+  // p = q0 + q1, then ([x^2]p - [x]p - p) + psi([x]p - p) + psi^2([2]p)
+  coop_g2_add(run, sh, sh.p, sh.L[0].q, false, sh.L[1].q, false);
+  coop_g2_mul_x_abs(run, sh, sh.acc, sh.p);
+  run([&](int tid) {
+    if (tid == 0) sh.t1 = g2_neg(sh.acc);                 // [x]p, x < 0
+  });
+  coop_g2_mul_x_abs(run, sh, sh.acc, sh.t1);              // -[x^2]p
+  coop_g2_add(run, sh, sh.acc, sh.acc, true, sh.t1, true);
+  coop_g2_add(run, sh, sh.acc, sh.acc, false, sh.p, true);
+  coop_g2_add(run, sh, sh.u, sh.t1, false, sh.p, true);
+  coop_g2_psi(run, sh, sh.u);
+  coop_g2_add(run, sh, sh.acc, sh.acc, false, sh.u, false);
+  coop_g2_add(run, sh, sh.u, sh.p, false, sh.p, false);
+  coop_g2_psi(run, sh, sh.u);
+  coop_g2_psi(run, sh, sh.u);
+  coop_g2_add(run, sh, sh.acc, sh.acc, false, sh.u, false);
+  // affine: zi = 1/Z (fp2_inv), (X zi, Y zi)
+  const G2P& p = sh.acc;
+  coop_wave(run, 2, [&](int i, Fp& a, Fp& b) { a = b = i ? p.Z.c1 : p.Z.c0; },
+            [&](int i, const Fp& r) { sh.M[i] = r; });
+  run([&](int tid) {
+    if (tid == 0) sh.ni = fp_inv(fp_add(sh.M[0], sh.M[1]));
+  });
+  coop_wave(run, 2, [&](int i, Fp& a, Fp& b) {
+    a = i ? fp_neg(p.Z.c1) : p.Z.c0;
+    b = sh.ni;
+  }, [&](int i, const Fp& r) { (i ? sh.zi.c1 : sh.zi.c0) = r; });
+  coop_wave(run, 6, [&](int i, Fp& a, Fp& b) {
+    kara_opnd(i < 3 ? p.X : p.Y, sh.zi, i % 3, a, b);
+  }, [&](int i, const Fp& r) { sh.M[i] = r; });
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 2)
+      store_fp2(out, m2 / 2, msg, 2 * k, kara_post(sh.M + 3 * k));
   });
 }

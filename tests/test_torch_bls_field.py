@@ -29,6 +29,17 @@ M = 3  # lanes
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain versions run thousands of small ops: one torch thread per
+    test worker (for the module's fixtures too) keeps parallel workers from
+    oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def bind_consts():
     JPK._bind_consts(
         jnp.asarray(JPK.CONSTS_PLANES),

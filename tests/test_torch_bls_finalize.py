@@ -46,7 +46,7 @@ int host_sigma_combine(const int32_t* part, long long m, int C, int32_t* col) {
 int host_finalize(const int32_t* f, int32_t* ok, int32_t* g) {
   FinShared* sh = (FinShared*)malloc(sizeof(FinShared));
   if (!sh) return -1;
-  finalize_body(HostRun(), *sh, f, ok, g);
+  finalize_body(HostRun<LH_COOP_THREADS>(), *sh, f, ok, g);
   free(sh);
   return 0;
 }

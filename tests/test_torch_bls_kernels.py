@@ -25,6 +25,17 @@ from lighthouse_tpu_torch.ops import cuda_build
 S = PK.PREP_S
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain versions run thousands of small ops: one torch thread per
+    test worker (for the module's fixtures too) keeps parallel workers from
+    oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def on_cpu():
     prev = device.default_device()
