@@ -37,14 +37,15 @@ Phases, each of which fails the run with a non-zero exit:
    not.  Outputs agree limb for limb and the verdict exactly; 4 hash
    columns match the host ``hash_to_g2``.  A probe times one thread's
    chain of dependent Montgomery products: the latency of one prices the
-   chain bounds of sigma_combine, finalize, Miller+fold and hash-to-G2,
-   whose critical paths are dependent chains.  Each kernel is timed with
-   CUDA events beside its plain version and its bounds.  The two group
-   kernels (one thread group per lane pair or message) print their
-   launch shape, shared memory, registers and stack, and
-   compute-sanitizer's racecheck runs on one cell of each in a child
-   process where the toolkit has it and the card allows it (else the
-   script says it did not run).
+   chain bounds of sigma_combine, finalize, Miller+fold, hash-to-G2,
+   sigma and prepare, whose critical paths are dependent chains.  Each
+   kernel is timed with CUDA events beside its plain version and its
+   bounds.  The group kernels (one thread group per lane pair, message,
+   lane or set; the sigma butterfly a cluster of blocks per chunk) print
+   their launch shape, shared memory, registers and stack, and
+   compute-sanitizer's racecheck runs on one cell or chunk of each in a
+   child process where the toolkit has it and the card allows it (else
+   the script says it did not run).
 6. ``verify_signature_sets`` of the port's default (``tpu``) backend on the
    sync-committee shape (512 shared keys × 256 messages, built like
    ``bench.py``): the valid batch verifies, a swapped signature and an
@@ -77,18 +78,21 @@ Phases, each of which fails the run with a non-zero exit:
    aggregates of ~90% of 512-member committees, a sync aggregate of ~460
    of 512 keys, the proposer's block and randao sets.  Two work items
    (K 512 and 1), so the finalize takes 256 lanes; the valid batch
-   verifies, a swapped signature fails; the two items' Miller+fold inputs,
-   recorded in one more call, give the kernel's output raw; ``verify``
-   and ``aggregate_verify`` once each, valid and tampered.
+   verifies, a swapped signature fails; the two items' Miller+fold and
+   prepare inputs, recorded in one more call, give each kernel's output
+   raw (prepare is timed on both items beside its chain bound);
+   ``verify`` and ``aggregate_verify`` once each, valid and tampered.
 10. ``profile_stages(C=8)`` (the unfused Miller kernel) and the
     prepare → miller(256) → product chain (the product kernel), each
     with its launches counted and its time printed.
 
 The line before the last is one JSON object with each kernel's launches,
 error, time, plain-version time and bound (for sigma_combine, finalize,
-Miller+fold and hash-to-G2 also their chain bound; the last two take
-``ms`` at the shared path's shapes and add ``ms_general`` and its bounds
-at the general path's); the last line is
+Miller+fold, hash-to-G2, sigma and prepare also their chain bound;
+Miller+fold, hash-to-G2 and sigma take ``ms`` at the shared path's
+shapes and add ``ms_general`` and its bounds at the general path's,
+prepare adds ``ms_block`` and its chain bounds on the block batch's two
+items); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing a result.
 """
@@ -124,6 +128,10 @@ SHARED_PATH_KERNELS = ("hash_g2", "sigma", "sigma_combine", "miller_fold",
                        "finalize")
 CHAIN_SHORT, CHAIN_LONG = 1000, 21000   # dependent products of the probe
 MAX_WARM_LAUNCHES = 200       # CUDA kernels per warm general verify
+# A launch counter that counts a call of two CUDA kernels (the sigma
+# ladder, then its butterfly), and the traced kernel names it counts.
+KERNELS_PER_CALL = {"sigma": 2}
+TRACE_NAMES = {"sigma_ladder": "sigma", "sigma_fold": "sigma"}
 RACECHECK_TIMEOUT_S = 300
 KERNEL_N = 1 << 20            # hash64 pairs / sub-tree leaves timed
 TIMED_RUNS = 20
@@ -653,7 +661,7 @@ def mont_bound_ms(hw: dict, products: int) -> float:
         INT32_LANES_PER_SM * hw["sms"] * hw["clk_hz"]) * 1e3
 
 
-def chain_products(PK, kernel: str, C=None) -> int:
+def chain_products(PK, kernel: str, C=None, K=None) -> int:
     """The critical path in dependent Montgomery products, where the
     independent products of one tower step (one wave of a thread group)
     count as one, worked out from the kernels' formulas
@@ -679,7 +687,12 @@ def chain_products(PK, kernel: str, C=None) -> int:
     (tv1·t)·s, sgn0(y): 4), the isogeny's 5 waves, q0 + q1, the two
     [|x|] ladders (an addition per bit and per set bit), the four final
     additions (the ψ terms beside them), then the affine point (squares,
-    the ladder, the inverse's products, X·zi beside Y·zi)."""
+    the ladder, the inverse's products, X·zi beside Y·zi).  ``sigma``:
+    the 64-bit ladder (acc + base beside base + base: two waves a bit)
+    and the 7 butterfly steps (one addition, two waves, each).
+    ``prepare`` with K key slots: the K in-order additions (two waves
+    each), the 64-bit ladder (two waves a bit), the Fermat ladder of Z,
+    then X·zi beside Y·zi."""
     ladder = len(PK.P_MINUS_2_BITS) + int(sum(PK.P_MINUS_2_BITS))
     x_adds = len(PK.X_BITS_FULL) + int(sum(PK.X_BITS_FULL))
     if kernel == "sigma_combine":
@@ -690,6 +703,10 @@ def chain_products(PK, kernel: str, C=None) -> int:
     if kernel == "miller_fold":
         return (4 * len(PK.X_BITS_MILLER) + 3 * int(sum(PK.X_BITS_MILLER))
                 + 1)
+    if kernel == "sigma":
+        return 2 * 64 + 2 * (PK.LANE_BLOCK.bit_length() - 1)
+    if kernel == "prepare":
+        return 2 * K + 2 * 64 + ladder + 1
     from lighthouse_tpu_torch.crypto import htc_kernel as HK
     sswu = 8 + ladder + len(HK.E16_BITS_LSB) + 4
     return sswu + 5 + 2 + 2 * 2 * x_adds + 4 * 2 + (1 + ladder + 2)
@@ -792,30 +809,42 @@ def plain_products(PK, fn) -> int:
 
 
 def group_configs(torch, PK, hw: dict) -> dict:
-    """The two group kernels' launch shapes at the path's sizes (Miller+fold
-    on 256 and 1280 lanes, hash-to-G2 on 2 and 8 cells, one group per lane
-    pair or message), their dynamic shared memory and what ptxas gave them;
-    at the general path's sizes every SM gets a block."""
+    """The group kernels' launch shapes at the paths' sizes (one group per
+    lane pair for Miller+fold on 256 and 1280 lanes, per message for
+    hash-to-G2 on 2 and 8 cells, per lane for the sigma ladder at C = 2 and
+    8, per set for prepare on the block batch's 256 sets and BASELINE row
+    1's 1024; the sigma butterfly one block of a cluster per 16 lanes),
+    their dynamic shared memory and what ptxas gave them.  At the general
+    path's sizes every SM gets a block, and the butterfly a cluster per
+    chunk (64 blocks at C = 8)."""
     out = {}
     for which, sizes in (("miller_fold", (256, 1280)),
-                         ("hash_g2", (2 * 256, 8 * 256))):
+                         ("hash_g2", (2 * 256, 8 * 256)),
+                         ("sigma", (2 * 128, 8 * 128)),
+                         ("sigma_fold", (2 * 128, 8 * 128)),
+                         ("prepare", (2 * 128, GEN_SETS))):
         info = PK.group_kernel_info(which)
-        blocks = [n // 2 // info["groups"] for n in sizes]
+        blocks = [n // info["lanes_per_group"] // info["groups"]
+                  for n in sizes]
         out[which] = {**info, "blocks": blocks,
                       "shared_bytes_per_block":
                           info["groups"] * info["shared_bytes_per_group"]}
         print(f"{which}: {info['G']} threads a group, {info['groups']} "
-              f"groups a block, blocks {blocks} at {sizes} lanes, "
-              f"{out[which]['shared_bytes_per_block']} B dynamic shared "
-              f"memory a block, {info['registers']} registers and "
+              f"groups a block, {info['cluster']} blocks a cluster, blocks "
+              f"{blocks} at {sizes} lanes, "
+              f"{out[which]['shared_bytes_per_block']} B shared memory a "
+              f"block, {info['registers']} registers and "
               f"{info['local_bytes']} B stack a thread [{hw['card']}]")
-        check(blocks[-1] >= hw["sms"], f"{which} launches {blocks[-1]} "
-                                       f"blocks on {hw['sms']} SMs")
+        least = sizes[-1] // PK.LANE_BLOCK * info["cluster"] \
+            if which == "sigma_fold" else hw["sms"]
+        check(blocks[-1] >= least, f"{which} launches {blocks[-1]} blocks "
+                                   f"(want {least}) on {hw['sms']} SMs")
     return out
 
 
 def race_child(which: str) -> None:
-    """One small launch of a group kernel (one cell), for racecheck."""
+    """One small launch of a group kernel (one cell or chunk), for
+    racecheck."""
     import torch
     from lighthouse_tpu_torch import device
     from lighthouse_tpu_torch.crypto import fields as F
@@ -831,8 +860,23 @@ def race_child(which: str) -> None:
         PK.miller_fold_kernel_call(rand_planes(torch, rng, F, LF, 2, 2 * S),
                                    rand_planes(torch, rng, F, LF, 4, 2 * S),
                                    mask)
-    else:
+    elif which == "hash_g2":
         HK.hash_g2_kernel_call(rand_planes(torch, rng, F, LF, 2, 2 * S))
+    else:                           # one chunk: live, dead and masked lanes
+        def u32(n):
+            return torch.from_numpy(rng.integers(0, 2 ** 32, (1, n),
+                                                 dtype=np.uint64)
+                                    .astype(np.uint32).view(np.int32)).cuda()
+        mask = torch.ones((1, S), dtype=torch.int32, device="cuda")
+        mask[0, :8] = 0
+        lo, hi = u32(S), u32(S)
+        lo[0, :4], hi[0, :4] = 0, 0
+        if which == "sigma":
+            PK.sigma_kernel_call(rand_planes(torch, rng, F, LF, 4, S), mask,
+                                 lo, hi)
+        else:                       # prepare, K = 2
+            PK.prepare_kernel_call(rand_planes(torch, rng, F, LF, 2, 2 * S),
+                                   torch.cat([mask, mask], 1), lo, hi, 2)
     torch.cuda.synchronize()
     print(f"race child {which}: launched")
 
@@ -849,9 +893,10 @@ def racecheck_group_kernels(hw: dict) -> dict:
               "toolkit)")
         return {"run": False}
     result = {}
-    for which in ("miller_fold", "hash_g2"):
+    for which in ("miller_fold", "hash_g2", "sigma", "prepare"):
+        kernels = "lh_sigma_" if which == "sigma" else f"lh_{which}_kernel"
         cmd = [tool, "--tool", "racecheck", "--kernel-name",
-               f"kns=lh_{which}_kernel", sys.executable,
+               f"kns={kernels}", sys.executable,
                os.path.abspath(__file__), "--race-child", which]
         try:
             r = subprocess.run(cmd, capture_output=True, text=True,
@@ -968,7 +1013,8 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
            lambda: PK.sigma_plain(sig_cols, smask, lo_d, hi_d),
            plain_products(PK, lambda: PK.sigma_plain(sig_cols, smask, lo_d,
                                                      hi_d)),
-           f"sig {tuple(sig_cols.shape)}, the path's columns")
+           f"sig {tuple(sig_cols.shape)}, the path's columns",
+           chain=chain_products(PK, "sigma"))
 
     # sigma_combine as the shared path calls it (the H and σ partials side
     # by side), and with an all-dead partial (its sum is the identity)
@@ -1386,7 +1432,8 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
            plain_products(PK, lambda: PK.prepare_plain(pk, kmask_d, lo_d,
                                                        hi_d, K)),
            4 * (64 * pk.shape[1] + pk.shape[1] + 2 * GEN_SETS
-                + 65 * GEN_SETS), f"C=8, K={K}, pk {tuple(pk.shape)}")
+                + 65 * GEN_SETS), f"C=8, K={K}, pk {tuple(pk.shape)}",
+           chain=chain_products(PK, "prepare", K=K))
 
     # PR 2's kernels at this path's shapes: hash-to-G2 on 8 cells, sigma
     # on C = 8, Miller+fold on the padded (C+1)·128 → 1280-lane cell
@@ -1424,8 +1471,7 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
              f"sig {tuple(sig_d.shape)}, C={sig_d.shape[1] // S}"),
             ("miller_fold", PK.miller_fold_kernel_call, PK.miller_fold_plain,
              cell, f"{cell[0].shape[1]} lanes, {n_live} live")):
-        chain = (chain_products(PK, name)
-                 if name in ("hash_g2", "miller_fold") else None)
+        chain = chain_products(PK, name)
         errs[name] = compare_once(name, kern, plain, ins, shape, chain)
 
     # miller at 256 and 1024 lanes on the path's points (c·aggpk, H(m))
@@ -1532,8 +1578,9 @@ def profile_call(torch, hw: dict, label: str, fn, kernel_ms=None) -> dict:
     port kernels of a call (the first ~50 ms of a verify's ctypes
     launches; a fresh process records them all).  The port's launch
     counters are exact, so the port kernels the trace lacks are added to
-    the kernel count, and their time at ``kernel_ms`` (name → median ms
-    of that kernel on this card, phases 5 and 7) to the busy time; the
+    the kernel count (a sigma call is two CUDA kernels,
+    ``KERNELS_PER_CALL``), and their time at ``kernel_ms`` (name → median
+    ms of that call on this card, phases 5 and 7) to the busy time; the
     correction is printed."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1556,14 +1603,18 @@ def profile_call(torch, hw: dict, label: str, fn, kernel_ms=None) -> dict:
         k = k.removeprefix("void ")
         if k.startswith("lh_"):
             name = k.split("(")[0].split("<")[0][3:].removesuffix("_kernel")
+            name = TRACE_NAMES.get(name, name)
             traced[name] = traced.get(name, 0) + c
-    missed = {k: n - traced.get(k, 0) for k, n in launched.items()
-              if n > traced.get(k, 0)}
+    # CUDA kernels the trace lacks, per launch counter
+    missed = {k: KERNELS_PER_CALL.get(k, 1) * n - traced.get(k, 0)
+              for k, n in launched.items()
+              if KERNELS_PER_CALL.get(k, 1) * n > traced.get(k, 0)}
     kernel_ms = kernel_ms or {}
     unpriced = sorted(k for k in missed if k not in kernel_ms)
     check(not unpriced, f"profile {label}: the trace missed {unpriced} "
                         f"and no kernel time prices them")
-    added = sum(n * kernel_ms[k] for k, n in missed.items())
+    added = sum(n * kernel_ms[k] / KERNELS_PER_CALL.get(k, 1)
+                for k, n in missed.items())
     busy = traced_busy + added
     kernels = sum(c for _d, c, _k in devt) - copies + sum(missed.values())
     note = "" if not missed else (
@@ -1727,28 +1778,57 @@ def phase_block_verify(torch, hw: dict, block, rand_fn) -> dict:
                               sets[3].message)
     check(backend.verify_signature_sets(bad, rand_fn=rand_fn) is False,
           "the block batch with a swapped signature verified")
-    # the two work items' Miller+fold inputs (K 512 and K 1), recorded in
-    # one more valid call, kernel against plain
-    inputs, kernel_call = [], PK.miller_fold_kernel_call
+    # the two work items' Miller+fold and prepare inputs (K 512 and K 1),
+    # recorded in one more valid call, each kernel against its plain version
+    recorded = {"miller_fold": [], "prepare": []}
+    calls = {name: getattr(PK, f"{name}_kernel_call") for name in recorded}
 
-    def recording(*args, **kw):
-        inputs.append([a.clone() for a in args])
-        return kernel_call(*args, **kw)
+    def recorder(name):
+        def call(*args):
+            recorded[name].append([a.clone() if isinstance(a, torch.Tensor)
+                                   else a for a in args])
+            return calls[name](*args)
+        return call
 
-    PK.miller_fold_kernel_call = recording
+    for name in recorded:
+        setattr(PK, f"{name}_kernel_call", recorder(name))
     try:
         check(backend.verify_signature_sets(sets, rand_fn=rand_fn) is True,
               "the valid block batch did not verify (recorded call)")
     finally:
-        PK.miller_fold_kernel_call = kernel_call
-    check(len(inputs) == 2, f"{len(inputs)} Miller+fold calls, not 2")
-    miller_err = max(max_abs_err(torch, kernel_call(*a),
-                                 PK.miller_fold_plain(*a)) for a in inputs)
+        for name, fn in calls.items():
+            setattr(PK, f"{name}_kernel_call", fn)
+    for name, got in recorded.items():
+        check(len(got) == 2, f"{len(got)} {name} calls, not 2")
+    miller_err = max(max_abs_err(torch, calls["miller_fold"](*a),
+                                 PK.miller_fold_plain(*a))
+                     for a in recorded["miller_fold"])
     check(miller_err == 0, "miller_fold kernel != plain on the block batch's "
                            "inputs (raw limbs)")
     print("block batch Miller+fold inputs " + ", ".join(
-        f"{a[0].shape[1]} lanes ({int(a[2].sum())} live)" for a in inputs)
-        + ": kernel raw equal to plain")
+        f"{a[0].shape[1]} lanes ({int(a[2].sum())} live)"
+        for a in recorded["miller_fold"]) + ": kernel raw equal to plain")
+    prepare_err, prepare_block = 0, []
+    for a in recorded["prepare"]:
+        K, lanes = a[4], a[2].shape[1]
+        (g_k, f_k), (g_p, f_p) = calls["prepare"](*a), PK.prepare_plain(*a)
+        err = max(max_abs_err(torch, g_k, g_p), max_abs_err(torch, f_k, f_p))
+        check(err == 0, f"prepare kernel != plain on the block batch's K={K} "
+                        f"item (raw limbs)")
+        prepare_err = max(prepare_err, err)
+        live = int(((a[1].view(-1, K, PK.PREP_S) != 0).any(1).flatten()
+                    | (a[2][0] != 0) | (a[3][0] != 0)).sum())
+        ms = cuda_ms(torch, lambda: calls["prepare"](*a), BLS_TIMED_RUNS)
+        chain = chain_products(PK, "prepare", K=K)
+        t = {"K": K, "sets": lanes, "live": live, "ms": ms,
+             "chain_products": chain,
+             "chain_bound_ms": chain * hw["mont_latency_ms"]}
+        prepare_block.append(t)
+        print(f"block batch prepare K={K}: {lanes} sets ({live} live), kernel "
+              f"raw equal to plain; {ms:.3f} ms (median of {BLS_TIMED_RUNS}), "
+              f"chain bound {t['chain_bound_ms']:.4f} ms ({chain} dependent "
+              f"products) -> {100 * t['chain_bound_ms'] / ms:.2f}% of it "
+              f"[{hw['card']}]")
     warm = [timed(torch, lambda: backend.verify_signature_sets(
         sets, rand_fn=rand_fn))[1] for _ in range(3)]
     print(f"block verify: valid True ({ms:.1f} ms cold table for its keys, "
@@ -1783,7 +1863,8 @@ def phase_block_verify(torch, hw: dict, block, rand_fn) -> dict:
     print("verify: valid True, altered message False; aggregate_verify "
           "(4 signers): valid True, messages rotated False")
     return {"launches": launches, "ms": ms, "warm": warm, "stages": stages,
-            "miller_err": miller_err}
+            "miller_err": miller_err, "prepare_err": prepare_err,
+            "prepare_block": prepare_block}
 
 
 # ---------------------------------------------------------------------------
@@ -1938,10 +2019,11 @@ def main() -> None:
     general_errs = {**gk["errs"], "finalize": gk["errs"]["finalize_wide"]}
     general_errs["miller_fold"] = max(general_errs["miller_fold"],
                                       blk["miller_err"])
+    general_errs["prepare"] = max(general_errs["prepare"], blk["prepare_err"])
     for name in ("hash_g2", "sigma", "miller_fold", "finalize"):
         row(name, "bls381.cu", bv["launches"][name],
             max(bk["errs"][name], general_errs[name]), bk["timing"][name])
-        if name in ("hash_g2", "miller_fold"):    # the general path's shape
+        if name in ("hash_g2", "sigma", "miller_fold"):   # the general shape
             g = gk["timing"][name]
             kernels[-1].update(
                 ms_general=g["ms"], shape_general=g["shape"],
@@ -1957,8 +2039,16 @@ def main() -> None:
                 "product_chunks": gv["launches"]["product_chunks"],
                 **pf["launches"]}
     for name in ("prepare", "product_chunks", "miller", "product"):
-        row(name, "bls381.cu", launches[name], gk["errs"][name],
+        row(name, "bls381.cu", launches[name], general_errs[name],
             gk["timing"][name])
+        if name == "prepare":           # the block batch's two work items
+            kernels[-1].update(
+                ms_block=[t["ms"] for t in blk["prepare_block"]],
+                K_block=[t["K"] for t in blk["prepare_block"]],
+                chain_bound_ms_block=[t["chain_bound_ms"]
+                                      for t in blk["prepare_block"]],
+                **{f"{k}_launch": v for k, v in bk["groups"][name].items()
+                   if k in ("G", "groups")})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(hw["card"])
     print(json.dumps({"kernels": kernels}))

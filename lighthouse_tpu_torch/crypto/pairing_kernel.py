@@ -8,14 +8,17 @@ core in ``csrc/bls381_field.cuh``, built at first use by
 
 - :func:`prepare_kernel_call` — per set, the sum of its K affine G1 keys
   (masked slots add the identity), the identity flag, the 64-bit RLC
-  ladder and the affine result (replaces ``_prepare_kernel``);
+  ladder and the affine result (replaces ``_prepare_kernel``).  One
+  sub-warp thread group per set shares each G1 addition's products;
 - :func:`sigma_kernel_call` — masked G2 × 64-bit RLC ladder, then a
-  128-lane roll-add butterfly (replaces ``_sigma_kernel``);
+  128-lane roll-add butterfly (replaces ``_sigma_kernel``).  Two
+  launches: one thread group per lane for the ladder, then a cluster of
+  blocks per 128-lane chunk for the butterfly;
 - :func:`miller_fold_kernel_call` — the 63-iteration Miller loop,
   conjugate, mask and the fold of lane j with lane j+128 (replaces
   ``_miller_fold_kernel``).  One thread group per lane pair shares each
-  step's independent products; :func:`group_kernel_info` reports its
-  launch shape;
+  step's independent products; :func:`group_kernel_info` reports the
+  group kernels' launch shapes;
 - :func:`miller_kernel_call` — the Miller loop alone, every lane
   (replaces ``_miller_kernel``; the stage profile runs it);
 - :func:`product_chunks_kernel_call` — per 256-lane chunk, the masked
@@ -691,7 +694,9 @@ def _check_planes(x, rows: int, name: str, lanes_mult: int = 1):
 def sigma_kernel_call(sig_cols, mask, lo, hi):
     """sig (128, C·128) affine G2 signature columns, mask/lo/hi (1, C·128)
     int32 → (192, C·128) projective per-chunk Σ c_s·σ_s (every lane of a
-    chunk's block holds that chunk's full sum)."""
+    chunk's block holds that chunk's full sum).  One call is two kernel
+    launches (the ladder, then the butterfly in place on the output) and
+    counts once in :data:`LAUNCHES`."""
     _check_planes(sig_cols, 4 * BLOCK_ROWS, "sig_cols", PREP_S)
     m = sig_cols.shape[1]
     for name, v in (("mask", mask), ("lo", lo), ("hi", hi)):
@@ -1082,7 +1087,7 @@ _SIGNATURES = {
     "lh_sigma": [_P, _P, _P, _P, _P, _LL, _P],
     # g1, g2, mask, out, lanes, stream
     "lh_miller_fold": [_P, _P, _P, _P, _LL, _P],
-    # which kernel (0 Miller+fold, 1 hash-to-G2), info out
+    # which kernel (GROUP_KERNELS index), info out
     "lh_group_kernel_info": [ctypes.c_int, _P],
     # f, ok, g, stream
     "lh_finalize": [_P, _P, _P, _P],
@@ -1166,15 +1171,21 @@ def kernel_library() -> ctypes.CDLL:
     return lib
 
 
+# The thread-group kernels, in ``lh_group_kernel_info``'s order: Miller+fold,
+# hash-to-G2, the sigma ladder, prepare, and the sigma butterfly (whose
+# group is one block of its cluster).
+GROUP_KERNELS = ("miller_fold", "hash_g2", "sigma", "prepare", "sigma_fold")
+
+
 def group_kernel_info(which: str) -> dict:
-    """Launch shape and ptxas resources of a group kernel (``miller_fold``
-    or ``hash_g2``)."""
-    info = np.zeros(5, np.int32)
+    """Launch shape and ptxas resources of a group kernel (a name of
+    :data:`GROUP_KERNELS`)."""
+    info = np.zeros(7, np.int32)
     _check_rc(kernel_library().lh_group_kernel_info(
-        ("miller_fold", "hash_g2").index(which), info.ctypes.data),
-        "group kernel info")
+        GROUP_KERNELS.index(which), info.ctypes.data), "group kernel info")
     return dict(zip(("G", "groups", "shared_bytes_per_group", "registers",
-                     "local_bytes"), (int(v) for v in info)))
+                     "local_bytes", "lanes_per_group", "cluster"),
+                    (int(v) for v in info)))
 
 
 def _check_rc(rc: int, what: str) -> None:

@@ -9,7 +9,8 @@
 //
 // Kernel                   replaces (lighthouse_tpu/crypto/)
 // lh_hash_g2_kernel        htc_kernel.py _hash_g2_kernel (pallas_call :285)
-// lh_sigma_kernel          pairing_kernel.py _sigma_kernel (:1001)
+// lh_sigma_ladder_kernel + pairing_kernel.py _sigma_kernel (:1001)
+//   lh_sigma_fold_kernel
 // lh_miller_fold_kernel    pairing_kernel.py _miller_fold_kernel (:938)
 // lh_finalize_kernel       pairing_kernel.py _finalize_easy_kernel +
 //                          _finalize_hard_kernel (:1165, :1173)
@@ -29,20 +30,21 @@
 // counted once, times the latency of one dependent product) is the larger.
 // The reference's formulas run in the reference's order in every design.
 //
-// One thread per lane: sigma, prepare, product_chunks and the unfused
-// Miller kernel (ladders rolled, tower functions __noinline__); the product
-// butterfly runs 128 threads, one per residue class mod 128; sigma_combine
-// runs each partial's chain (about 600-900 products) on one thread.
+// One thread per lane: product_chunks and the unfused Miller kernel
+// (ladders rolled, tower functions __noinline__); the product butterfly
+// runs 128 threads, one per residue class mod 128; sigma_combine runs each
+// partial's chain (about 600-900 products) on one thread.
 //
 // Thread groups sharing each tower step (the cooperative phases of
 // bls381_field.cuh): each step's independent Montgomery products run as one
 // wave on the group's threads, its additions as item phases, then the
 // group's barrier.  finalize is one 256-thread group (the block): each step
 // of its 983-product chain costs a wave, not 54 products in a row.
-// Miller+fold and hash-to-G2 run one small group per lane pair or message
-// (LH_MILLER_G, LH_HASH_G threads; several groups a block, enough blocks
-// for every SM at the general path's sizes), so their many independent
-// chains fill the card and each chain is a few hundred waves:
+// Miller+fold, hash-to-G2, the sigma ladder and prepare run one small group
+// per lane pair, message, lane or set (LH_*_G threads; several groups a
+// block, enough blocks for every SM at the general path's sizes), so their
+// many independent chains fill the card and each chain is a few hundred
+// waves:
 //   lh_miller_fold_kernel replaces _miller_fold_kernel (pairing_kernel.py
 //     :893, pallas_call :938).  Rate bound at 1280 lanes (1025 live) 1.02
 //     ms; chain bound 268 products (four waves a doubling step, three an
@@ -53,6 +55,22 @@
 //     binds at both paths' sizes (the rate bound prices the plain version's
 //     distinct messages only); its two Fermat ladders (2 x 610 products)
 //     stay one thread's serial chain.
+//   lh_sigma_ladder_kernel + lh_sigma_fold_kernel replace _sigma_kernel
+//     (pairing_kernel.py :969, pallas_call :1001): a 32-thread group per
+//     lane runs its 64-bit ladder (acc + base beside base + base, two waves
+//     of 36 products a bit), then a cluster of 8 blocks per 128-lane chunk
+//     runs the butterfly over distributed shared memory (7 steps of two
+//     waves; on one block the chunk's 32k products would sit on one SM's
+//     issue, about 0.38 ms).  Rate bound 0.44 ms at C = 8 (the waves' 36
+//     products use 36 of 64 thread slots, so the issue is about 1.8x it);
+//     chain bound 142 products (about 0.21 ms).
+//   lh_prepare_kernel replaces _prepare_kernel (pairing_kernel.py :1198,
+//     pallas_call :1240): a 16-thread group per set, two sets a warp: K
+//     in-order G1 additions (two waves of 6 products, the next key fetched
+//     meanwhile), the 64-bit ladder (two waves of 12 a bit), the Fermat
+//     inversion on one thread.  Chain bound 2K + 739 products (771, about
+//     1.15 ms, at K = 16; 1,763 at the block batch's K = 512), 79% of it the
+//     Fermat ladder at K = 16: the chain binds, not the rate (0.21 ms).
 // product_chunks moves the most bytes per product (two Fq12 in, one out:
 // 4.6 KB per 54 Montgomery products) and is still bound by operations.
 
@@ -79,31 +97,35 @@ lh_hash_g2_kernel(const int32_t* __restrict__ u, int32_t* __restrict__ out,
                (long long)blockIdx.x * groups + gi);
 }
 
-// --- sigma: one 128-lane chunk per block -------------------------------------
-// Masked point, 64-bit RLC ladder, then the butterfly: for w = 64 ... 1,
-// lane j adds lane (j + w) mod 128, exchanged through shared memory.
-__global__ void __launch_bounds__(LANE_BLOCK)
-lh_sigma_kernel(const int32_t* __restrict__ sig,
-                const int32_t* __restrict__ mask,
-                const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
-                int32_t* __restrict__ out, long long m) {
-  __shared__ G2P pts[LANE_BLOCK];
-  const int tid = threadIdx.x;
-  const long long lane = (long long)blockIdx.x * LANE_BLOCK + tid;
-  G2P p = g2_identity();
-  if (mask[lane] != 0)
-    p = {load_fp2(sig, m, lane, 0), load_fp2(sig, m, lane, 2), fp2_one()};
-  G2P acc = sigma_ladder(p, (uint32_t)lo[lane], (uint32_t)hi[lane]);
-  for (int w = LANE_BLOCK / 2; w >= 1; w >>= 1) {
-    pts[tid] = acc;
-    __syncthreads();
-    const G2P other = pts[(tid + w) & (LANE_BLOCK - 1)];
-    __syncthreads();
-    acc = g2_add(acc, other);
-  }
-  store_fp2(out, m, lane, 0, acc.X);
-  store_fp2(out, m, lane, 2, acc.Y);
-  store_fp2(out, m, lane, 4, acc.Z);
+// --- sigma: one group of G threads per lane, then a cluster per chunk -------
+// sigma_ladder_body (bls381_field.cuh): the lane's masked point times its
+// 64-bit RLC scalar, acc + base and base + base as one pair of waves a bit;
+// the state sits in shared memory (SigmaLane, one per group).  The ladder
+// values go to ``out``; lh_sigma_fold_kernel then folds each chunk there.
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX)
+lh_sigma_ladder_kernel(const int32_t* __restrict__ sig,
+                       const int32_t* __restrict__ mask,
+                       const int32_t* __restrict__ lo,
+                       const int32_t* __restrict__ hi, int32_t* out,
+                       long long m) {
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  sigma_ladder_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+                    reinterpret_cast<SigmaLane*>(lh_group_smem)[gi], sig, mask,
+                    lo, hi, out, m, (long long)blockIdx.x * groups + gi);
+}
+
+// The butterfly of each 128-lane chunk in place on ``out``: a cluster of
+// LH_SIGMA_CLUSTER blocks (one chunk), LH_SIGMA_FOLD_LANES lanes a block in
+// its shared memory; each step's additions read the partner lanes from the
+// cluster's other blocks (distributed shared memory), one pair of waves
+// over the block's threads, then the cluster's barrier (sigma_fold_cluster).
+__global__ void __cluster_dims__(LH_SIGMA_CLUSTER, 1, 1)
+__launch_bounds__(LH_SIGMA_FOLD_THREADS)
+lh_sigma_fold_kernel(int32_t* out, long long m) {
+  __shared__ SigmaFoldShared sh;
+  sigma_fold_cluster(sh, out, m);
 }
 
 // --- Miller loop + masked fold: one group of G threads per lane pair ---------
@@ -153,24 +175,24 @@ __global__ void lh_sigma_combine_kernel(const int32_t* __restrict__ p0,
       t ? p1 : p0, m, (int)(m / LANE_BLOCK), cols + t * 4 * LH_ROWS);
 }
 
-// --- prepare: one block per 128-set chunk, a thread per set -----------------
-// Set s of chunk c reads key k at column (c*K + k)*128 + s: the K slots
-// summed from the identity, the identity flag, the 64-bit RLC ladder, and
-// the affine point c_i * aggpk_i (prepare_set).
-__global__ void __launch_bounds__(LANE_BLOCK)
+// --- prepare: one sub-warp group of G threads per set ------------------------
+// prepare_body (bls381_field.cuh): set s of chunk c reads key k at column
+// (c*K + k)*128 + s: the K slots summed in k order from the identity, the
+// identity flag, the 64-bit RLC ladder, and the affine point c_i * aggpk_i;
+// G = 8 or 16 puts several sets in one warp (__syncwarp over the group's
+// lanes), its state in shared memory (PrepShared, one per group).
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX)
 lh_prepare_kernel(const int32_t* __restrict__ pk,
                   const int32_t* __restrict__ kmask,
                   const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
                   int32_t* __restrict__ out, int32_t* __restrict__ flags,
                   long long m, int K) {
-  const int tid = threadIdx.x;
-  const long long lane = (long long)blockIdx.x * LANE_BLOCK + tid;
-  const long long col = (long long)blockIdx.x * K * LANE_BLOCK + tid;
-  Fp xa, ya;
-  flags[lane] = prepare_set(pk, kmask, m * K, col, LANE_BLOCK, K,
-                            (uint32_t)lo[lane], (uint32_t)hi[lane], xa, ya);
-  store_fp(out, m, lane, 0, xa);
-  store_fp(out, m, lane, 1, ya);
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  prepare_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+               reinterpret_cast<PrepShared*>(lh_group_smem)[gi], pk, kmask, lo,
+               hi, out, flags, m, K, (long long)blockIdx.x * groups + gi);
 }
 
 // --- product_chunks: one block per 256-lane chunk, a thread per output lane --
@@ -243,11 +265,12 @@ int lh_bls_init(const void* host_consts, int nwords) {
 
 // One group of G threads per work item (n of them), ``groups`` a block,
 // each with its Shared state in dynamic shared memory.  Named barriers
-// allow 15 groups of more than 32 threads a block.
+// allow 15 groups of more than 32 threads a block; groups of 32 threads or
+// fewer sync on __syncwarp.
 template <class Shared, int G, int groups, class... P, class... A>
 static int launch_groups(void (*kernel)(P...), long long n, void* stream,
                          A... args) {
-  static_assert(G * groups <= LH_GROUP_BLOCK_MAX && (G == 32 || groups <= 15),
+  static_assert(G * groups <= LH_GROUP_BLOCK_MAX && (G <= 32 || groups <= 15),
                 "launch shape");
   if (n % groups != 0) return (int)cudaErrorInvalidValue;
   const int bytes = groups * (int)sizeof(Shared);   // above 48 KB: opt in
@@ -268,8 +291,13 @@ int lh_hash_g2(const int32_t* u, int32_t* out, long long m2, void* stream) {
 
 int lh_sigma(const int32_t* sig, const int32_t* mask, const int32_t* lo,
              const int32_t* hi, int32_t* out, long long m, void* stream) {
-  lh_sigma_kernel<<<(unsigned)(m / LANE_BLOCK), LANE_BLOCK, 0,
-                    (cudaStream_t)stream>>>(sig, mask, lo, hi, out, m);
+  const int e = launch_groups<SigmaLane, LH_SIGMA_G, LH_SIGMA_GROUPS>(
+      lh_sigma_ladder_kernel<LH_SIGMA_G>, m, stream,   // a group a lane
+      sig, mask, lo, hi, out, m);
+  if (e != 0) return e;
+  lh_sigma_fold_kernel<<<(unsigned)(m / LH_SIGMA_FOLD_LANES),
+                         LH_SIGMA_FOLD_THREADS, 0, (cudaStream_t)stream>>>(
+      out, m);
   return (int)cudaGetLastError();
 }
 
@@ -280,20 +308,33 @@ int lh_miller_fold(const int32_t* g1, const int32_t* g2, const int32_t* mask,
       g1, g2, mask, out, m);
 }
 
-// A group kernel's launch shape (which: 0 Miller+fold, 1 hash-to-G2) and
-// what ptxas gave it: info = {threads a group, groups a block, shared
-// bytes a group, registers a thread, local (stack) bytes a thread}.
+// A group kernel's launch shape (which: 0 Miller+fold, 1 hash-to-G2, 2 the
+// sigma ladder, 3 prepare, 4 the sigma butterfly, whose group is its block
+// of a cluster) and what ptxas gave it: info = {threads a group, groups a
+// block, shared bytes a group, registers a thread, local (stack) bytes a
+// thread, lanes a group, blocks a cluster}.
 int lh_group_kernel_info(int which, int* info) {
+  static const int shape[5][5] = {
+      {LH_MILLER_G, LH_MILLER_GROUPS, (int)sizeof(MillerShared), 2, 1},
+      {LH_HASH_G, LH_HASH_GROUPS, (int)sizeof(HashShared), 2, 1},
+      {LH_SIGMA_G, LH_SIGMA_GROUPS, (int)sizeof(SigmaLane), 1, 1},
+      {LH_PREP_G, LH_PREP_GROUPS, (int)sizeof(PrepShared), 1, 1},
+      {LH_SIGMA_FOLD_THREADS, 1, (int)sizeof(SigmaFoldShared),
+       LH_SIGMA_FOLD_LANES, LH_SIGMA_CLUSTER}};
+  if (which < 0 || which > 4) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e =
-      which ? cudaFuncGetAttributes(&a, lh_hash_g2_kernel<LH_HASH_G>)
-            : cudaFuncGetAttributes(&a, lh_miller_fold_kernel<LH_MILLER_G>);
+      which == 0   ? cudaFuncGetAttributes(&a, lh_miller_fold_kernel<LH_MILLER_G>)
+      : which == 1 ? cudaFuncGetAttributes(&a, lh_hash_g2_kernel<LH_HASH_G>)
+      : which == 2 ? cudaFuncGetAttributes(&a, lh_sigma_ladder_kernel<LH_SIGMA_G>)
+      : which == 3 ? cudaFuncGetAttributes(&a, lh_prepare_kernel<LH_PREP_G>)
+                   : cudaFuncGetAttributes(&a, lh_sigma_fold_kernel);
   if (e != cudaSuccess) return (int)e;
-  info[0] = which ? LH_HASH_G : LH_MILLER_G;
-  info[1] = which ? LH_HASH_GROUPS : LH_MILLER_GROUPS;
-  info[2] = which ? (int)sizeof(HashShared) : (int)sizeof(MillerShared);
+  for (int i = 0; i < 3; ++i) info[i] = shape[which][i];
   info[3] = a.numRegs;
   info[4] = (int)a.localSizeBytes;
+  info[5] = shape[which][3];
+  info[6] = shape[which][4];
   return 0;
 }
 
@@ -317,10 +358,9 @@ int lh_sigma_combine(const int32_t* p0, const int32_t* p1, int32_t* cols,
 int lh_prepare(const int32_t* pk, const int32_t* kmask, const int32_t* lo,
                const int32_t* hi, int32_t* out, int32_t* flags, long long m,
                int K, void* stream) {
-  lh_prepare_kernel<<<(unsigned)(m / LANE_BLOCK), LANE_BLOCK, 0,
-                      (cudaStream_t)stream>>>(pk, kmask, lo, hi, out, flags,
-                                              m, K);
-  return (int)cudaGetLastError();
+  return launch_groups<PrepShared, LH_PREP_G, LH_PREP_GROUPS>(
+      lh_prepare_kernel<LH_PREP_G>, m, stream,   // a group a set
+      pk, kmask, lo, hi, out, flags, m, K);
 }
 
 int lh_product_chunks(const int32_t* f, const int32_t* mask, int32_t* out,

@@ -27,6 +27,9 @@
 
 #pragma once
 #include <stdint.h>
+#if defined(__CUDACC__)
+#include <cooperative_groups.h>
+#endif
 
 #if defined(__CUDACC__)
 #define LH_FN __device__ __forceinline__
@@ -441,58 +444,29 @@ LH_FN G2P g2_identity() { return {fp2_zero(), fp2_one(), fp2_zero()}; }
 LH_FN G2P g2_neg(const G2P& p) { return {p.X, fp2_neg(p.Y), p.Z}; }
 
 // ---------------------------------------------------------------------------
-// G1, the same law over Fq (b3 = 3*4): the reference's _G1ops + point_add
+// G1, the same law over Fq (b3 = 3*4): the reference's _G1ops + point_add,
+// run only as the cooperative waves of g1_add_opnd1 ... g1_add_out below
 // ---------------------------------------------------------------------------
 
 LH_FN Fp g1_b3(const Fp& t) { return fp_muls(t, 12); }
 
-LH_NI G1P g1_add(const G1P& p, const G1P& q) {
-  Fp t0 = fp_mul(p.X, q.X);
-  Fp t1 = fp_mul(p.Y, q.Y);
-  Fp t2 = fp_mul(p.Z, q.Z);
-  Fp pxy = fp_mul(fp_add(p.X, p.Y), fp_add(q.X, q.Y));
-  Fp pyz = fp_mul(fp_add(p.Y, p.Z), fp_add(q.Y, q.Z));
-  Fp pxz = fp_mul(fp_add(p.X, p.Z), fp_add(q.X, q.Z));
-  Fp s3 = fp_sub(pxy, fp_add(t0, t1));
-  Fp s4 = fp_sub(pyz, fp_add(t1, t2));
-  Fp s5 = fp_sub(pxz, fp_add(t0, t2));
-  Fp b3t2 = g1_b3(t2);
-  Fp um = fp_sub(t1, b3t2);
-  Fp up = fp_add(t1, b3t2);
-  G1P r;
-  r.X = fp_sub(fp_mul(s3, um), g1_b3(fp_mul(s4, s5)));
-  r.Y = fp_add(fp_mul(up, um), fp_muls(g1_b3(fp_mul(t0, s5)), 3));
-  r.Z = fp_add(fp_mul(s4, up), fp_muls(fp_mul(t0, s3), 3));
-  return r;
-}
-
 LH_FN G1P g1_identity() { return {fp_zero(), KC.ONE, fp_zero()}; }
-
-// LSB-first 64-bit double-and-add (scalar_mul), as sigma_ladder does it.
-LH_NI G1P g1_ladder(const G1P& p, uint32_t lo, uint32_t hi) {
-  G1P acc = g1_identity();
-  G1P base = p;
-#pragma unroll 1
-  for (int i = 0; i < 64; ++i) {
-    uint32_t bit = ((i < 32 ? lo : hi) >> (i & 31)) & 1u;
-    G1P added = g1_add(acc, base);
-    if (bit) acc = added;
-    base = g1_add(base, base);
-  }
-  return acc;
-}
 
 // ---------------------------------------------------------------------------
 // Boundary layout: block k of a (rows, M) int32 plane, 16-bit limbs
 // ---------------------------------------------------------------------------
 
-LH_FN Fp load_fp(const int32_t* base, long long M, long long lane, int blk) {
+// Word w (two 16-bit limbs) of Fq block ``blk`` of a boundary plane.
+LH_FN uint32_t load_word(const int32_t* base, long long M, long long lane,
+                         int blk, int w) {
   const int32_t* p = base + (long long)blk * LH_ROWS * M + lane;
+  return ((uint32_t)p[(2 * w) * M] & 0xFFFFu) | ((uint32_t)p[(2 * w + 1) * M] << 16);
+}
+
+LH_FN Fp load_fp(const int32_t* base, long long M, long long lane, int blk) {
   Fp r;
 #pragma unroll
-  for (int i = 0; i < LH_NW; ++i)
-    r.w[i] = ((uint32_t)p[(2 * i) * M] & 0xFFFFu) |
-             ((uint32_t)p[(2 * i + 1) * M] << 16);
+  for (int i = 0; i < LH_NW; ++i) r.w[i] = load_word(base, M, lane, blk, i);
   return r;
 }
 
@@ -540,21 +514,6 @@ LH_FN void store_fp12(int32_t* base, long long M, long long lane,
 // ---------------------------------------------------------------------------
 // Per-lane pieces of the kernels
 // ---------------------------------------------------------------------------
-
-// Sigma: LSB-first 64-bit double-and-add (scalar_mul); the add is computed
-// every step and kept where the bit is set.
-LH_FN G2P sigma_ladder(const G2P& p, uint32_t lo, uint32_t hi) {
-  G2P acc = g2_identity();
-  G2P base = p;
-#pragma unroll 1
-  for (int i = 0; i < 64; ++i) {
-    uint32_t bit = ((i < 32 ? lo : hi) >> (i & 31)) & 1u;
-    G2P added = g2_add(acc, base);
-    if (bit) acc = added;
-    base = g2_add(base, base);
-  }
-  return acc;
-}
 
 // Line ((A, B, 0), (0, C, 0)) as a dense Fq12 (the reference multiplies
 // the dense element, so the lazy representatives match).
@@ -613,31 +572,6 @@ LH_FN Fp12 miller_loop(const Fp& xP, const Fp& yP, const Fp2& Qx,
 }
 
 // --- the general batch verify -----------------------------------------------
-
-// Prepare, one set: its K key slots summed in k order from the identity
-// (a masked slot adds the identity), the identity flag of the sum, the
-// RLC ladder, then affine by Fermat.  inv(0) = 0, so a set whose sum is
-// the identity, and a dead lane, come out as (0, 0) with flag 1.  ``col``
-// is the column of key 0, ``stride`` the step between keys, ``mk`` the
-// key plane's width.
-LH_FN int prepare_set(const int32_t* pk, const int32_t* kmask, long long mk,
-                      long long col, long long stride, int K, uint32_t lo,
-                      uint32_t hi, Fp& xa, Fp& ya) {
-  G1P acc = g1_identity();
-#pragma unroll 1
-  for (int k = 0; k < K; ++k, col += stride) {
-    G1P blk = g1_identity();
-    if (kmask[col] != 0)
-      blk = {load_fp(pk, mk, col, 0), load_fp(pk, mk, col, 1), KC.ONE};
-    acc = g1_add(acc, blk);
-  }
-  const int flag = fp_is_zero(acc.Z) ? 1 : 0;
-  const G1P s = g1_ladder(acc, lo, hi);
-  const Fp zi = fp_inv(s.Z);
-  xa = fp_mul(s.X, zi);
-  ya = fp_mul(s.Y, zi);
-  return flag;
-}
 
 // Lane ``lane`` of an Fq12 plane, or 1 where the mask is 0.
 LH_FN Fp12 fp12_masked(const int32_t* f, const int32_t* mask, long long m,
@@ -706,20 +640,25 @@ LH_FN int sigma_combine_lane(const int32_t* part, long long m, int C,
 // group of G threads runs, followed by the group's barrier; its work items
 // are spread over the group, item i on thread i mod G.  A runner executes
 // the phases: GroupRun on the card (the phase on the thread's index in its
-// group, then the group's barrier: __syncwarp for G = 32, a named barrier
-// ``bar.sync id, G`` for a group of 64 or 128 threads, __syncthreads where
-// the group is the whole block), HostRun in a plain C++ build (the phase for
-// each tid of 0 ... G-1 in a loop, in one of three orders), so a host build
-// runs the card's arithmetic (its raw additions as C loops, the same bits as
-// the card's PTX chains).  An item never reads what another item of its
-// phase writes; a host build run in every order checks that.
+// group, then the group's barrier: __syncwarp over the group's lanes for G
+// = 8, 16 or 32 (a sub-warp group is G aligned lanes of one warp), a named
+// barrier ``bar.sync id, G`` for a group of 64 or 128 threads,
+// __syncthreads where the group is the whole block), HostRun in a plain C++
+// build (the phase for each tid of 0 ... G-1 in a loop, in one of three
+// orders), so a host build runs the card's arithmetic (its raw additions as
+// C loops, the same bits as the card's PTX chains).  An item never reads
+// what another item of its phase writes; a host build run in every order
+// checks that.
 // Each item computes its value with the serial formulas above (fp2_mul,
-// fp6_mul, fp12_mul, fp2_inv, g2_add, ...) on the same operands in the same
-// order, so every value is the serial one limb for limb.  A dependent chain
-// of tower steps then costs one wave of products per step (plus its
-// additions and barriers), not the step's products in a row.  Finalize runs
-// one group of LH_COOP_THREADS (the block); Miller+fold and hash-to-G2 run
-// many small groups per block, one per lane pair or message.  Measured on
+// fp6_mul, fp12_mul, fp2_inv, g2_add, the G1 law of g1_add_opnd1 ...) on
+// the same operands in the same order, so every value is the serial one
+// limb for limb.  A
+// dependent chain of tower steps then costs one wave of products per step
+// (plus its additions and barriers), not the step's products in a row.
+// Finalize runs one group of LH_COOP_THREADS (the block); Miller+fold,
+// hash-to-G2 and the sigma ladder run many small groups per block, one per
+// lane pair, message or lane; prepare runs sub-warp groups, several sets a
+// warp; the sigma butterfly runs a cluster of blocks per chunk.  Measured on
 // the H100 (the phase profile of probe_group_kernels.py): a dependent
 // addition costs about a twentieth of a product, and a phase costs the serial
 // sum of every item kind its warp holds, so the items of a phase share one
@@ -738,7 +677,10 @@ struct GroupRun {
   template <class F>
   LH_MFN void operator()(F&& phase) const {
     phase(t);
-    if (G == 32) {
+    if constexpr (G < 32) {          // the group's G aligned lanes
+      static_assert(32 % G == 0, "a sub-warp group divides a warp");
+      __syncwarp(((1u << G) - 1u) << (threadIdx.x & (32u - G)));
+    } else if constexpr (G == 32) {
       __syncwarp();
     } else if (bar == 0) {
       __syncthreads();
@@ -777,9 +719,10 @@ struct HostRun {
 #define LH_ITEMS(i, tid, n) for (int i = (tid); i < (n); i += Run::G_)
 // List t of a phase whose lists take different branches: all of it on warp
 // t mod (G/32) of the group, so a warp does not run several kinds of item
-// one after the other.
-#define LH_LIST(i, tid, n, t)                  \
-  if (((tid) >> 5) == (t) % (Run::G_ >> 5))    \
+// one after the other (groups of whole warps only).
+#define LH_LIST(i, tid, n, t)                                         \
+  static_assert(Run::G_ % 32 == 0, "LH_LIST needs a group of warps"); \
+  if (((tid) >> 5) == (t) % (Run::G_ >> 5))                           \
     for (int i = (tid)&31; i < (n); i += 32)
 
 // Operands of Karatsuba product t (m0 = a0 b0, m1 = a1 b1, m2 = (a0 + a1)
@@ -919,6 +862,115 @@ LH_FN void coop_wave(const Run& run, int n, Opnd opnd, Put put, Extra extra) {
 template <class Run, class Opnd, class Put>
 LH_FN void coop_wave(const Run& run, int n, Opnd opnd, Put put) {
   coop_wave(run, n, opnd, put, [](int) {});
+}
+
+// n RCB additions side by side (g2_add), as ONE pair of waves of 18n
+// products: pts(q, a, na, b, nb) names addition q's operands (a + b, each
+// negated where na, nb), out(q, k, v) takes coordinate k (X Y Z) of its
+// sum.  M holds 18n products, mid 6n middle values.  out runs after both
+// waves, so an addition may write its own operands.
+template <class Run, class Pts, class Out>
+LH_FN void coop_g2_adds(const Run& run, Fp* M, Fp2* mid, int n, Pts pts,
+                        Out out) {
+  auto to_m = [&](int i, const Fp& r) { M[i] = r; };
+  coop_wave(run, 18 * n, [&](int i, Fp& x, Fp& y) {
+    const G2P *a, *b;
+    bool na, nb;
+    pts(i / 18, a, na, b, nb);
+    g2_add_opnd1(*a, na, *b, nb, i % 18, x, y);
+  }, to_m);
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 6 * n) mid[k] = g2_add_mid(M + 18 * (k / 6), k % 6);
+  });
+  coop_wave(run, 18 * n, [&](int i, Fp& x, Fp& y) {
+    g2_add_opnd2(mid + 6 * (i / 18), i % 18, x, y);
+  }, to_m);
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 3 * n) out(k / 3, k % 3, g2_add_out(M + 18 * (k / 3), k % 3));
+  });
+}
+
+LH_FN Fp2& g2_coord_ref(G2P& p, int c) { return c == 0 ? p.X : c == 1 ? p.Y : p.Z; }
+
+// --- the G1 addition p + q as two waves of six products --------------------
+//
+// The serial law, over Fq (b3(t) = 12 t):
+//   t0 = X X', t1 = Y Y', t2 = Z Z', pxy = (X + Y)(X' + Y'),
+//   pyz = (Y + Z)(Y' + Z'), pxz = (X + Z)(X' + Z');
+//   s3 = pxy - (t0 + t1), s4 = pyz - (t1 + t2), s5 = pxz - (t0 + t2),
+//   um = t1 - b3(t2), up = t1 + b3(t2);
+//   X'' = s3 um - b3(s4 s5), Y'' = up um + 3 b3(t0 s5), Z'' = s4 up + 3 t0 s3.
+
+LH_FN Fp& g1_coord(G1P& p, int c) { return c == 0 ? p.X : c == 1 ? p.Y : p.Z; }
+LH_FN const Fp& g1_coord(const G1P& p, int c) {
+  return c == 0 ? p.X : c == 1 ? p.Y : p.Z;
+}
+// Product r < 6 of the first wave: t0 t1 t2 pxy pyz pxz.  A doubling (p and
+// q one point) computes its operand once.
+LH_NI void g1_add_opnd1(const G1P& p, const G1P& q, int r, Fp& a, Fp& b) {
+  auto side = [r](const G1P& s) -> Fp {
+    if (r < 3) return g1_coord(s, r);
+    return fp_add(g1_coord(s, r == 5 ? 0 : r - 3), g1_coord(s, r == 3 ? 1 : 2));
+  };
+  a = side(p);
+  b = &p == &q ? a : side(q);
+}
+// Middle value k (s3 s4 s5 um up t0) from the first wave's products m
+// (a - b as a + (-b), the same bits).
+LH_NI Fp g1_add_mid(const Fp* m, int k) {
+  const Fp a = m[k < 3 ? 3 + k : k < 5 ? 1 : 0];
+  if (k == 5) return a;
+  const Fp b = k < 3 ? fp_add(m[k == 1 ? 1 : 0], m[k == 0 ? 1 : 2])
+                     : g1_b3(m[2]);
+  return fp_add(a, k == 4 ? b : fp_neg(b));
+}
+// Product r < 6 of the second wave: s3 um, s4 s5, up um, t0 s5, s4 up,
+// t0 s3, on the middle values mid.
+LH_FN void g1_add_opnd2(const Fp* mid, int r, Fp& a, Fp& b) {
+  a = mid[(0x515410 >> (4 * r)) & 0xF];
+  b = mid[(0x042323 >> (4 * r)) & 0xF];
+}
+// Coordinate k (X Y Z) of p + q from the second wave's products m; one
+// code path with selects.
+LH_NI Fp g1_add_out(const Fp* m, int k) {
+  const Fp w = m[2 * k + 1], b = g1_b3(w);
+  const Fp t = fp_muls(k < 2 ? b : w, 3);
+  const Fp u = k == 0 ? b : t;
+  return fp_add(m[2 * k], k == 0 ? fp_neg(u) : u);
+}
+
+// n G1 additions side by side (the law above), as ONE pair of waves of 6n
+// products: pts(q, a, b) names addition q's operands (a + b), out(q, k, v)
+// takes coordinate k of its sum.  fetch(tid) runs at the start of the first
+// wave's phase and keep(tid, fetched) at its end: loads that are in flight
+// while the products run (they touch nothing the additions read or write).
+template <class Run, class Pts, class Out, class Fetch, class Keep>
+LH_FN void coop_g1_adds(const Run& run, Fp* M, Fp* mid, int n, Pts pts,
+                        Out out, Fetch fetch, Keep keep) {
+  run([&](int tid) {
+    const auto fetched = fetch(tid);
+    LH_ITEMS(i, tid, 6 * n) {
+      const G1P *a, *b;
+      pts(i / 6, a, b);
+      Fp x, y;
+      g1_add_opnd1(*a, *b, i % 6, x, y);
+      M[i] = fp_mul(x, y);
+    }
+    keep(tid, fetched);
+  });
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 6 * n) mid[k] = g1_add_mid(M + 6 * (k / 6), k % 6);
+  });
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 6 * n) {
+      Fp x, y;
+      g1_add_opnd2(mid + 6 * (i / 6), i % 6, x, y);
+      M[i] = fp_mul(x, y);
+    }
+  });
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 3 * n) out(k / 3, k % 3, g1_add_out(M + 6 * (k / 3), k % 3));
+  });
 }
 
 // After a wave of n Fq12 products (product q's 54 at M + q*stride): their
@@ -1193,14 +1245,23 @@ LH_FN void finalize_body(const Run& run, FinShared& sh, const int32_t* f,
   });
 }
 
-// Threads a group (G) and groups a block of the two group kernels, chosen
-// by the launch-shape table of probe_group_kernels.py on the H100
-// (PERF.md), and the most threads a block of them may have.
+// Threads a group (G) and groups a block of the group kernels, chosen by
+// the launch-shape table of probe_group_kernels.py on the H100 (PERF.md),
+// and the most threads a block of them may have; the sigma butterfly's
+// cluster of blocks per chunk and its threads a block (one product of a
+// wave each: 18 per addition, LH_LANES / LH_SIGMA_CLUSTER additions).
 #define LH_GROUP_BLOCK_MAX 256
 #define LH_MILLER_G 64
 #define LH_MILLER_GROUPS 2
 #define LH_HASH_G 32
 #define LH_HASH_GROUPS 2
+#define LH_SIGMA_G 32
+#define LH_SIGMA_GROUPS 2
+#define LH_PREP_G 16
+#define LH_PREP_GROUPS 2
+#define LH_SIGMA_CLUSTER 8
+#define LH_SIGMA_FOLD_LANES (LH_LANES / LH_SIGMA_CLUSTER)
+#define LH_SIGMA_FOLD_THREADS (18 * LH_SIGMA_FOLD_LANES)
 
 // ---------------------------------------------------------------------------
 // Miller loop + fold: one group per lane pair (j, j + 128) of a 256-lane cell
@@ -1655,16 +1716,14 @@ LH_NI void hash_map_group(const Run& run, HashShared& sh) {
 template <class Run>
 LH_NI void coop_g2_add(const Run& run, HashShared& sh, G2P& p, const G2P& a,
                        bool na, const G2P& b, bool nb) {
-  auto to_m = [&](int i, const Fp& r) { sh.M[i] = r; };
-  coop_wave(run, 18, [&](int i, Fp& x, Fp& y) {
-    g2_add_opnd1(a, na, b, nb, i, x, y);
-  }, to_m);
-  run([&](int tid) { LH_ITEMS(k, tid, 6) sh.mid[k] = g2_add_mid(sh.M, k); });
-  coop_wave(run, 18, [&](int i, Fp& x, Fp& y) { g2_add_opnd2(sh.mid, i, x, y); },
-            to_m);
-  run([&](int tid) {
-    LH_ITEMS(k, tid, 3) (k == 0 ? p.X : k == 1 ? p.Y : p.Z) = g2_add_out(sh.M, k);
-  });
+  coop_g2_adds(run, sh.M, sh.mid, 1,
+               [&](int, const G2P*& x, bool& nx, const G2P*& y, bool& ny) {
+                 x = &a;
+                 nx = na;
+                 y = &b;
+                 ny = nb;
+               },
+               [&](int, int k, const Fp2& v) { g2_coord_ref(p, k) = v; });
 }
 
 // p <- psi(p) = (PSI_CX conj(X), PSI_CY conj(Y), conj(Z)).
@@ -1740,5 +1799,268 @@ LH_FN void hash_g2_body(const Run& run, HashShared& sh, const int32_t* u,
   run([&](int tid) {
     LH_ITEMS(k, tid, 2)
       store_fp2(out, m2 / 2, msg, 2 * k, kara_post(sh.M + 3 * k));
+  });
+}
+
+// ---------------------------------------------------------------------------
+// Sigma: a group per lane for the RLC ladder, a cluster per chunk for the
+// butterfly
+// ---------------------------------------------------------------------------
+//
+// The ladder (scalar_mul, LSB first): acc <- identity, base <- the lane's
+// masked point; at each of the 64 bits acc + base and base + base run side
+// by side as ONE pair of waves (coop_g2_adds, 36 products a wave), and acc
+// takes the sum where the bit is set.  Both additions run at every bit, as
+// the reference's do; only a lane with mask 0 and scalar 0 (the identity
+// throughout) skips them.  The butterfly (w = 64 ... 1: lane j adds lane
+// (j + w) mod 128 of the previous step, every lane keeping its own sum)
+// runs as a second launch, a cluster of LH_SIGMA_CLUSTER blocks per
+// 128-lane chunk: a block holds LH_SIGMA_FOLD_LANES lanes in its shared
+// memory and reads the others from their blocks' (distributed shared
+// memory); each step is one pair of waves over its lanes' additions, then
+// the cluster's barrier.  One block per chunk would put the chunk's 7 x 128
+// additions (32k products) on one SM's issue, about as long as a
+// thread per lane takes.
+
+struct SigmaLane {
+  G2P acc, base;
+  Fp M[36];          // the products of one wave of the two additions
+  Fp2 mid[12];
+};
+
+// Lane ``lane`` of the (128, m) signature and (1, m) mask / lo / hi planes:
+// c * sigma (the identity where the mask is 0) into column ``lane`` of the
+// (192, m) output, projective.
+template <class Run>
+LH_FN void sigma_ladder_body(const Run& run, SigmaLane& sh, const int32_t* sig,
+                             const int32_t* mask, const int32_t* lo,
+                             const int32_t* hi, int32_t* out, long long m,
+                             long long lane) {
+  const uint32_t slo = (uint32_t)lo[lane], shi = (uint32_t)hi[lane];
+  const bool pt = mask[lane] != 0;
+  run([&](int tid) {
+    LH_ITEMS(c, tid, 6) {   // acc = identity; base = (x, y, 1) or identity
+      const int k = c % 3;
+      const Fp2 id = k == 1 ? fp2_one() : fp2_zero();
+      g2_coord_ref(c < 3 ? sh.acc : sh.base, k) =
+          c < 3 || !pt ? id : k < 2 ? load_fp2(sig, m, lane, 2 * k) : fp2_one();
+    }
+  });
+  if (pt || slo != 0 || shi != 0) {
+#pragma unroll 1
+    for (int i = 0; i < 64; ++i) {
+      const bool bit = (((i < 32 ? slo : shi) >> (i & 31)) & 1u) != 0;
+      coop_g2_adds(run, sh.M, sh.mid, 2,
+                   [&](int q, const G2P*& a, bool& na, const G2P*& b, bool& nb) {
+                     a = q ? &sh.base : &sh.acc;
+                     b = &sh.base;
+                     na = nb = false;
+                   },
+                   [&](int q, int k, const Fp2& v) {
+                     if (q || bit) g2_coord_ref(q ? sh.base : sh.acc, k) = v;
+                   });
+    }
+  }
+  run([&](int tid) {
+    LH_ITEMS(k, tid, 3) store_fp2(out, m, lane, 2 * k, g2_coord_ref(sh.acc, k));
+  });
+}
+
+#define LH_SIGMA_STEPS 7   // log2(LH_LANES) butterfly steps
+
+struct SigmaFoldShared {
+  G2P P[2][LH_SIGMA_FOLD_LANES];   // step s reads P[s & 1], writes the other
+  Fp M[18 * LH_SIGMA_FOLD_LANES];  // one wave of the block's additions
+  Fp2 mid[6 * LH_SIGMA_FOLD_LANES];
+};
+
+// Block ``rank`` of a chunk's cluster holds lanes lane0 + l, l <
+// LH_SIGMA_FOLD_LANES (lane0 = chunk * 128 + rank * LH_SIGMA_FOLD_LANES),
+// of the (192, m) plane.
+template <class Run>
+LH_FN void sigma_fold_load(const Run& run, SigmaFoldShared& sh,
+                           const int32_t* out, long long m, long long lane0) {
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 3 * LH_SIGMA_FOLD_LANES)
+      g2_coord_ref(sh.P[0][i / 3], i % 3) =
+          load_fp2(out, m, lane0 + i / 3, 2 * (i % 3));
+  });
+}
+
+// Butterfly step s (w = 64 >> s) of block ``rank``: its lane j adds lane
+// (j + w) mod 128 of the previous step, which block peer(r) of the cluster
+// holds (r = that lane / LH_SIGMA_FOLD_LANES).
+template <class Run, class Peer>
+LH_FN void sigma_fold_step(const Run& run, SigmaFoldShared& sh, Peer peer,
+                           int rank, int s) {
+  const int w = (LH_LANES / 2) >> s, cur = s & 1;
+  coop_g2_adds(run, sh.M, sh.mid, LH_SIGMA_FOLD_LANES,
+               [&](int l, const G2P*& a, bool& na, const G2P*& b, bool& nb) {
+                 const int o = (rank * LH_SIGMA_FOLD_LANES + l + w) & (LH_LANES - 1);
+                 a = &sh.P[cur][l];
+                 b = &peer(o / LH_SIGMA_FOLD_LANES)->P[cur][o % LH_SIGMA_FOLD_LANES];
+                 na = nb = false;
+               },
+               [&](int l, int k, const Fp2& v) {
+                 g2_coord_ref(sh.P[cur ^ 1][l], k) = v;
+               });
+}
+
+// The block's lanes after the last step, back into the (192, m) plane.
+template <class Run>
+LH_FN void sigma_fold_store(const Run& run, const SigmaFoldShared& sh,
+                            int32_t* out, long long m, long long lane0) {
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 3 * LH_SIGMA_FOLD_LANES) {
+      const G2P& p = sh.P[LH_SIGMA_STEPS & 1][i / 3];
+      store_fp2(out, m, lane0 + i / 3, 2 * (i % 3),
+                i % 3 == 0 ? p.X : i % 3 == 1 ? p.Y : p.Z);
+    }
+  });
+}
+
+#if defined(__CUDACC__)
+// The butterfly on the card: this block is block cluster.block_rank() of
+// chunk blockIdx.x / LH_SIGMA_CLUSTER's cluster, its LH_SIGMA_FOLD_THREADS
+// threads one group.  The cluster's barrier after each step also keeps
+// every block's shared memory alive until the last step's reads are done.
+LH_FN void sigma_fold_cluster(SigmaFoldShared& sh, int32_t* out, long long m) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const long long lane0 = (long long)(blockIdx.x / LH_SIGMA_CLUSTER) * LH_LANES +
+                          rank * LH_SIGMA_FOLD_LANES;
+  const GroupRun<LH_SIGMA_FOLD_THREADS> run{(int)threadIdx.x, 0};
+  sigma_fold_load(run, sh, out, m, lane0);
+  cluster.sync();
+#pragma unroll 1
+  for (int s = 0; s < LH_SIGMA_STEPS; ++s) {
+    sigma_fold_step(run, sh, [&](int r) { return cluster.map_shared_rank(&sh, r); },
+                    rank, s);
+    cluster.sync();
+  }
+  sigma_fold_store(run, sh, out, m, lane0);
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// Prepare: a sub-warp group per set
+// ---------------------------------------------------------------------------
+//
+// Set s of chunk c reads key slot k at column (c*K + k)*128 + s of the (64,
+// C*K*128) key plane: the K slots summed in k order from the identity (a
+// masked slot adds the identity), each addition a pair of 6-product waves
+// (coop_g1_adds) while the group fetches slot k + 1 into registers; the
+// identity flag of the sum; the 64-bit RLC ladder (acc + base and base +
+// base as one pair of 12-product waves a bit); the Fermat inversion of Z on
+// one thread (inv(0) = 0); then X zi and Y zi as one wave.  A set with no
+// live slot and scalar 0 is dead: flag 1 and (0, 0), as the plain version
+// writes.  Several sets share a warp (G = 8 or 16), so the card's SMs each
+// hold a few warps of sets.
+
+#define LH_PREP_G_MAX 32
+#define LH_PREP_FETCH 4    // words of a slot a thread fetches (26 over >= 8)
+
+struct PrepShared {
+  G1P acc, base;     // the ladder's acc; the key sum, then the ladder's base
+  G1P key[2];        // slots k and k + 1
+  Fp M[12], mid[12], zi;
+  int any[LH_PREP_G_MAX];   // a live slot among each thread's slots
+  int flag;
+};
+
+// A thread's words of one key slot (x then y, word indices tid + j*G < 26)
+// and the slot's mask.
+struct KeyFetch {
+  uint32_t w[LH_PREP_FETCH];
+  int live;
+};
+
+// Set ``set`` of the (64, m*K) key plane, (1, m*K) kmask and (1, m) lo / hi
+// planes: its affine point into column ``set`` of the (64, m) output and
+// its flag into ``flags``.
+template <class Run>
+LH_FN void prepare_body(const Run& run, PrepShared& sh, const int32_t* pk,
+                        const int32_t* kmask, const int32_t* lo,
+                        const int32_t* hi, int32_t* out, int32_t* flags,
+                        long long m, int K, long long set) {
+  constexpr int G = Run::G_;
+  static_assert(G >= 26 / LH_PREP_FETCH && G <= LH_PREP_G_MAX, "prepare group");
+  const long long mk = m * K, col0 = set / LH_LANES * K * LH_LANES + set % LH_LANES;
+  const uint32_t slo = (uint32_t)lo[set], shi = (uint32_t)hi[set];
+  auto col = [&](int k) { return col0 + (long long)k * LH_LANES; };
+  auto fetch = [&](int tid, long long c) {
+    KeyFetch f;
+    f.live = kmask[c] != 0;
+#pragma unroll
+    for (int j = 0; j < LH_PREP_FETCH; ++j) {
+      const int i = tid + j * G;
+      f.w[j] = i < 26 ? load_word(pk, mk, c, i / 13, i % 13) : 0u;
+    }
+    return f;
+  };
+  // slot = (x, y, 1) where live, else the identity (0, 1, 0)
+  auto keep = [&](int tid, const KeyFetch& f, G1P& key) {
+    LH_ITEMS(i, tid, 39) {
+      const int c = i / 13, w = i % 13;
+      const uint32_t one = KC.ONE.w[w];
+      g1_coord(key, c).w[w] = c == 2 ? (f.live ? one : 0u)
+                            : f.live ? f.w[(i - tid) / G] : c == 1 ? one : 0u;
+    }
+  };
+  run([&](int tid) {
+    int any = 0;
+    LH_ITEMS(k, tid, K) any |= kmask[col(k)] != 0;
+    sh.any[tid] = any;
+    keep(tid, fetch(tid, col(0)), sh.key[0]);
+    const G1P id = g1_identity();
+    LH_ITEMS(c, tid, 3) g1_coord(sh.acc, c) = g1_coord(sh.base, c) = g1_coord(id, c);
+  });
+  int live = slo != 0 || shi != 0;
+  for (int t = 0; t < G; ++t) live |= sh.any[t];
+  if (!live) {
+    run([&](int tid) {
+      LH_ITEMS(c, tid, 2) store_fp(out, m, set, c, fp_zero());
+      if (tid == 0) flags[set] = 1;
+    });
+    return;
+  }
+#pragma unroll 1
+  for (int k = 0; k < K; ++k) {   // base <- base + slot k; fetch slot k + 1
+    const bool next = k + 1 < K;
+    coop_g1_adds(run, sh.M, sh.mid, 1,
+                 [&](int, const G1P*& a, const G1P*& b) {
+                   a = &sh.base;
+                   b = &sh.key[k & 1];
+                 },
+                 [&](int, int c, const Fp& v) { g1_coord(sh.base, c) = v; },
+                 [&](int tid) { return fetch(tid, col(next ? k + 1 : k)); },
+                 [&](int tid, const KeyFetch& f) {
+                   if (next) keep(tid, f, sh.key[(k + 1) & 1]);
+                 });
+  }
+  run([&](int tid) {
+    if (tid == 0) sh.flag = fp_is_zero(sh.base.Z) ? 1 : 0;
+  });
+#pragma unroll 1
+  for (int i = 0; i < 64; ++i) {  // acc + base and base + base, one pair of waves
+    const bool bit = (((i < 32 ? slo : shi) >> (i & 31)) & 1u) != 0;
+    coop_g1_adds(run, sh.M, sh.mid, 2,
+                 [&](int q, const G1P*& a, const G1P*& b) {
+                   a = q ? &sh.base : &sh.acc;
+                   b = &sh.base;
+                 },
+                 [&](int q, int c, const Fp& v) {
+                   if (q || bit) g1_coord(q ? sh.base : sh.acc, c) = v;
+                 },
+                 [](int) { return 0; }, [](int, int) {});
+  }
+  run([&](int tid) {
+    if (tid == 0) sh.zi = fp_inv(sh.acc.Z);
+  });
+  coop_wave(run, 2, [&](int i, Fp& a, Fp& b) {
+    a = i ? sh.acc.Y : sh.acc.X;
+    b = sh.zi;
+  }, [&](int i, const Fp& r) { store_fp(out, m, set, i, r); }, [&](int tid) {
+    if (tid == 0) flags[set] = sh.flag;
   });
 }

@@ -1,10 +1,12 @@
-// Tuning probe for the two thread-group kernels of csrc/bls381.cu, for
+// Tuning probe for the thread-group kernels of csrc/bls381.cu, for
 // probe_group_kernels.py: the bodies of lh_miller_fold_kernel and
 // lh_hash_g2_kernel at any launch shape (G = 32, 64 or 128 threads a
 // group, several groups a block), under a runner that also stamps the SM
 // clock (clock64) after every barrier of one group (group 0 of block 0)
-// when given a stamp buffer, and the latency of one dependent Fq addition
-// and subtraction.  The port never calls this library.
+// when given a stamp buffer; the sigma ladder (G = 16, 32 or 64, then the
+// port's butterfly) and prepare (G = 8, 16 or 32) at any launch shape; and
+// the latency of one dependent Fq addition and subtraction.  The port
+// never calls this library.
 
 #include <cuda_runtime.h>
 
@@ -62,6 +64,37 @@ lh_hash_g2_phases_kernel(const int32_t* u, int32_t* out, long long m2,
   hash_g2_body(run, reinterpret_cast<HashShared*>(lh_group_smem)[gi], u, out,
                m2, (long long)blockIdx.x * (blockDim.x / G) + gi);
   if (run.stamps && threadIdx.x == 0) stamps[LH_STAMPS - 1] = n;
+}
+
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX)
+lh_sigma_ladder_phases_kernel(const int32_t* sig, const int32_t* mask,
+                              const int32_t* lo, const int32_t* hi,
+                              int32_t* out, long long m) {
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  sigma_ladder_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+                    reinterpret_cast<SigmaLane*>(lh_group_smem)[gi], sig, mask,
+                    lo, hi, out, m, (long long)blockIdx.x * groups + gi);
+}
+
+__global__ void __cluster_dims__(LH_SIGMA_CLUSTER, 1, 1)
+__launch_bounds__(LH_SIGMA_FOLD_THREADS)
+lh_sigma_fold_phases_kernel(int32_t* out, long long m) {
+  __shared__ SigmaFoldShared sh;
+  sigma_fold_cluster(sh, out, m);
+}
+
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX)
+lh_prepare_phases_kernel(const int32_t* pk, const int32_t* kmask,
+                         const int32_t* lo, const int32_t* hi, int32_t* out,
+                         int32_t* flags, long long m, int K) {
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  prepare_body(GroupRun<G>{(int)threadIdx.x % G, 0},
+               reinterpret_cast<PrepShared*>(lh_group_smem)[gi], pk, kmask, lo,
+               hi, out, flags, m, K, (long long)blockIdx.x * groups + gi);
 }
 
 // One group per work item (n of them), ``groups`` a block of G threads.
@@ -130,6 +163,45 @@ int lh_hash_g2_phases(const int32_t* u, int32_t* out, long long m2, int G,
     case 32: return go(lh_hash_g2_phases_kernel<32>);
     case 64: return go(lh_hash_g2_phases_kernel<64>);
     case 128: return go(lh_hash_g2_phases_kernel<128>);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The sigma ladder with groups of G threads (16, 32 or 64), ``groups`` a
+// block, then the port's butterfly: the whole of lh_sigma.
+int lh_sigma_phases(const int32_t* sig, const int32_t* mask, const int32_t* lo,
+                    const int32_t* hi, int32_t* out, long long m, int G,
+                    int groups, void* stream) {
+  auto go = [&](auto kernel) {
+    return launch_shape<SigmaLane>(kernel, G, groups, m, stream, sig, mask, lo,
+                                   hi, out, m);
+  };
+  int e = (int)cudaErrorInvalidValue;
+  switch (G) {
+    case 16: e = go(lh_sigma_ladder_phases_kernel<16>); break;
+    case 32: e = go(lh_sigma_ladder_phases_kernel<32>); break;
+    case 64: e = go(lh_sigma_ladder_phases_kernel<64>); break;
+  }
+  if (e != 0) return e;
+  lh_sigma_fold_phases_kernel<<<(unsigned)(m / LH_SIGMA_FOLD_LANES),
+                                LH_SIGMA_FOLD_THREADS, 0,
+                                (cudaStream_t)stream>>>(out, m);
+  return (int)cudaGetLastError();
+}
+
+// Prepare with groups of G threads (8, 16 or 32), ``groups`` a block.
+int lh_prepare_phases(const int32_t* pk, const int32_t* kmask,
+                      const int32_t* lo, const int32_t* hi, int32_t* out,
+                      int32_t* flags, long long m, int K, int G, int groups,
+                      void* stream) {
+  auto go = [&](auto kernel) {
+    return launch_shape<PrepShared>(kernel, G, groups, m, stream, pk, kmask,
+                                    lo, hi, out, flags, m, K);
+  };
+  switch (G) {
+    case 8: return go(lh_prepare_phases_kernel<8>);
+    case 16: return go(lh_prepare_phases_kernel<16>);
+    case 32: return go(lh_prepare_phases_kernel<32>);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Tuning probe for the two thread-group kernels of the port on one
-NVIDIA GPU: ``lh_miller_fold_kernel`` and ``lh_hash_g2_kernel``.
+"""Tuning probe for the thread-group kernels of the port on one NVIDIA
+GPU: ``lh_miller_fold_kernel``, ``lh_hash_g2_kernel``, the sigma ladder
+(``lh_sigma_ladder_kernel``) and ``lh_prepare_kernel``.
 
     python3 probe_group_kernels.py
 
@@ -13,7 +14,10 @@ after every barrier of one group) and prints:
    of 5 CUDA-event runs) beside the port's kernel at the shared path's
    and the general path's sizes (Miller+fold on 256 lanes with 2 live and
    on 1280 lanes with 1025 live, laid out as ``tpu_backend.miller_cell``
-   lays them out; hash-to-G2 on 2 and 8 cells);
+   lays them out; hash-to-G2 on 2 and 8 cells); likewise the sigma ladder
+   at G = 16, 32, 64 (with the port's butterfly after it) at C = 2 and 8,
+   and prepare at G = 8, 16, 32 at K = 16, C = 8 and on the block batch's
+   K = 512 (half the sets live) and K = 1 items;
 2. the phase profile of one group at the port's launch shape: cycles of
    each phase of a Miller doubling and addition step (one live lane), and
    of the hash's ladders, (p²+7)/16 bits and point additions;
@@ -41,6 +45,9 @@ MILLER_SHAPES = ((32, 2), (32, 4), (64, 1), (64, 2), (64, 4), (128, 1),
                  (128, 2))
 HASH_SHAPES = ((32, 1), (32, 2), (32, 4), (32, 8), (64, 1), (64, 2),
                (128, 1))
+SIGMA_SHAPES = ((16, 2), (16, 4), (32, 1), (32, 2), (32, 4), (64, 1),
+                (64, 2))
+PREP_SHAPES = ((8, 4), (8, 8), (16, 1), (16, 2), (16, 4), (32, 1), (32, 2))
 STAMPS = 4096                 # LH_STAMPS of csrc/bls381_phases.cu
 
 
@@ -58,37 +65,88 @@ def miller_inputs(torch, rng, F, LF, S) -> list:
     return out
 
 
+def shape_rows(torch, card, name, note, shapes, port, at, outs) -> None:
+    """One table row: port() (the port's kernel, a tuple of outputs)
+    against at(G, groups) writing ``outs`` at each launch shape, raw
+    equal, and each timed."""
+    want = port()
+    times = {}
+    for G, n in shapes:
+        def go():
+            rc = at(G, n)
+            check(rc == 0, f"{name} at ({G}, {n}): CUDA error {rc}")
+        go()
+        check(all(max_abs_err(torch, o, w) == 0 for o, w in zip(outs, want)),
+              f"{name} at ({G}, {n}) != the port's kernel")
+        times[(G, n)] = cuda_ms(torch, go, 5)
+    print(f"{name} launch shapes (G, groups a block) at {note}, raw equal, "
+          f"ms: " + ", ".join(f"{c} {t:.3f}" for c, t in times.items())
+          + f"; the port's kernel {cuda_ms(torch, port, 5):.3f} [{card}]")
+
+
 def shape_table(torch, card, lib, PK, HK, minputs, uinputs) -> None:
-    """Each launch shape raw equal to the port's kernel, and timed."""
+    """Miller+fold and hash-to-G2 at each launch shape."""
     stream = torch.cuda.current_stream().cuda_stream
-    cases = [("miller_fold", note, MILLER_SHAPES,
-              lambda a=a: PK.miller_fold_kernel_call(*a),
-              lambda o, G, n, a=a: lib.lh_miller_fold_phases(
-                  *(x.data_ptr() for x in a), o, a[0].shape[1], G, n, None,
-                  stream))
-             for note, *a in minputs]
-    cases += [("hash_g2", f"{u.shape[1] // 256} cells", HASH_SHAPES,
-               lambda u=u: HK.hash_g2_kernel_call(u),
-               lambda o, G, n, u=u: lib.lh_hash_g2_phases(
-                   u.data_ptr(), o, u.shape[1], G, n, None, stream))
-              for u in uinputs]
-    for name, note, shapes, port, at in cases:
-        want = port()
-        out = torch.empty_like(want)
-        times = {}
-        for G, n in shapes:
-            def go():
-                rc = at(out.data_ptr(), G, n)
-                check(rc == 0, f"{name} at ({G}, {n}): CUDA error {rc}")
-            go()
-            check(max_abs_err(torch, out, want) == 0,
-                  f"{name} at ({G}, {n}) != the port's kernel")
-            times[(G, n)] = cuda_ms(torch, go, 5)
-        print(f"{name} launch shapes (G, groups a block) at {note}, raw "
-              f"equal, ms: " + ", ".join(f"{c} {t:.3f}" for c, t in
-                                         times.items())
-              + f"; the port's kernel {cuda_ms(torch, port, 5):.3f} "
-              f"[{card}]")
+    for note, *a in minputs:
+        out = torch.empty((384, a[0].shape[1] // 2), dtype=torch.int32,
+                          device="cuda")
+        shape_rows(torch, card, "miller_fold", note, MILLER_SHAPES,
+                   lambda a=a: (PK.miller_fold_kernel_call(*a),),
+                   lambda G, n, a=a, out=out: lib.lh_miller_fold_phases(
+                       *(x.data_ptr() for x in a), out.data_ptr(),
+                       a[0].shape[1], G, n, None, stream), (out,))
+    for u in uinputs:
+        out = torch.empty((128, u.shape[1] // 2), dtype=torch.int32,
+                          device="cuda")
+        shape_rows(torch, card, "hash_g2", f"{u.shape[1] // 256} cells",
+                   HASH_SHAPES, lambda u=u: (HK.hash_g2_kernel_call(u),),
+                   lambda G, n, u=u, out=out: lib.lh_hash_g2_phases(
+                       u.data_ptr(), out.data_ptr(), u.shape[1], G, n, None,
+                       stream), (out,))
+
+
+def ladder_shape_table(torch, card, lib, PK, rng, F, LF, S) -> None:
+    """The sigma ladder and prepare at each launch shape, raw equal to the
+    port's kernels (sigma's whole output, prepare's points and flags) and
+    timed beside them.  Sets and lanes are live (random keys, masks with
+    90% live slots, random scalars) but for the K = 512 item, whose second
+    chunk of sets is dead (no live slot, scalar 0), as in a block batch."""
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def u32(n):
+        return torch.from_numpy(rng.integers(0, 2 ** 32, (1, n),
+                                             dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).cuda()
+
+    for C in (2, 8):
+        m = C * S
+        a = (rand_planes(torch, rng, F, LF, 4, m),
+             torch.ones((1, m), dtype=torch.int32, device="cuda"), u32(m),
+             u32(m))
+        out = torch.empty((192, m), dtype=torch.int32, device="cuda")
+        shape_rows(torch, card, "sigma", f"C={C}", SIGMA_SHAPES,
+                   lambda a=a: (PK.sigma_kernel_call(*a),),
+                   lambda G, n, a=a, out=out, m=m: lib.lh_sigma_phases(
+                       *(x.data_ptr() for x in a), out.data_ptr(), m, G, n,
+                       stream), (out,))
+    for C, K, dead in ((8, 16, 0), (2, 512, S), (2, 1, 0)):
+        m = C * S
+        kmask = torch.from_numpy((rng.random((1, m * K)) < 0.9)
+                                 .astype(np.int32)).cuda()
+        lo, hi = u32(m), u32(m)
+        if dead:
+            kmask.view(C, K, S)[-1, :, S - dead:] = 0
+            lo[0, m - dead:], hi[0, m - dead:] = 0, 0
+        a = (rand_planes(torch, rng, F, LF, 2, m * K), kmask, lo, hi)
+        out = torch.empty((64, m), dtype=torch.int32, device="cuda")
+        flags = torch.empty((1, m), dtype=torch.int32, device="cuda")
+        shape_rows(torch, card, "prepare", f"C={C}, K={K}, {dead} dead sets",
+                   PREP_SHAPES, lambda a=a, K=K: PK.prepare_kernel_call(*a, K),
+                   lambda G, n, a=a, K=K, out=out, flags=flags, m=m:
+                       lib.lh_prepare_phases(*(x.data_ptr() for x in a),
+                                             out.data_ptr(), flags.data_ptr(),
+                                             m, K, G, n, stream),
+                   (out, flags))
 
 
 def phase_profile(torch, card, clk_hz, lib, PK, HK, g1, g2, mask, u) -> None:
@@ -193,7 +251,9 @@ def main() -> None:
         "lh_phases_init": [P, I],
         "lh_miller_fold_phases": [P, P, P, P, LL, I, I, P, P],
         "lh_hash_g2_phases": [P, P, LL, I, I, P, P],
-        "lh_fp_add_chain": [P, P, I, I, P, P]})
+        "lh_fp_add_chain": [P, P, I, I, P, P],
+        "lh_sigma_phases": [P, P, P, P, P, LL, I, I, P],
+        "lh_prepare_phases": [P, P, P, P, P, P, LL, I, I, I, P]})
     consts = PK.cuda_consts()
     check(lib.lh_phases_init(consts.ctypes.data, consts.size) == 0,
           "constant upload failed")
@@ -203,6 +263,7 @@ def main() -> None:
     minputs = miller_inputs(torch, rng, F, LF, S)
     uinputs = [rand_planes(torch, rng, F, LF, 2, c * 2 * S) for c in (2, 8)]
     shape_table(torch, card, lib, PK, HK, minputs, uinputs)
+    ladder_shape_table(torch, card, lib, PK, rng, F, LF, S)
     phase_profile(torch, card, clk_hz, lib, PK, HK, *minputs[0][1:],
                   uinputs[0])
     add_latency(torch, card, lib, rand_planes(torch, rng, F, LF, 1, 2))

@@ -1,17 +1,20 @@
-"""The thread-group bodies of ``lh_miller_fold_kernel`` and
-``lh_hash_g2_kernel`` run on the host, held raw against the plain
-versions.
+"""The thread-group bodies of the BLS kernels run on the host, held raw
+against the plain versions.
 
 The CUDA header ``csrc/bls381_field.cuh`` compiles as plain C++: a small
-shim built with g++ runs ``miller_fold_body`` (one group per lane pair)
-and ``hash_g2_body`` (one group per message) group by group, every phase
-for the threads of a group one after the other, and both must equal the
-plain versions limb for limb for groups of 32, 64 and 128 threads.  The
-layer's rule is that no item of a phase reads what another item of that
-phase writes; the card runs a phase's threads in no fixed order, so each
-body is run with the threads of every phase in three orders (0 ... G-1,
-G-1 ... 0 and one fixed shuffle): an item that breaks the rule reads
-another value in one of them, and the output changes.
+shim built with g++ runs ``miller_fold_body`` (one group per lane pair),
+``hash_g2_body`` (one group per message), ``sigma_ladder_body`` (one group
+per lane) with the sigma butterfly's cluster steps (``sigma_fold_step``,
+the cluster's blocks one after the other between its barriers) and
+``prepare_body`` (one group per set, sub-warp groups included) group by
+group, every phase for the threads of a group one after the other, and
+each must equal its plain version limb for limb at every group size its
+kernel may launch with.  The layer's rule is that no item of a phase
+reads what another item of that phase writes; the card runs a phase's
+threads (and a cluster's blocks) in no fixed order, so each body is run
+with the threads of every phase in three orders (0 ... G-1, G-1 ... 0 and
+one fixed shuffle): an item that breaks the rule reads another value in
+one of them, and the output changes.
 """
 
 import ctypes
@@ -52,6 +55,42 @@ static void hash_groups(const int32_t* u, int32_t* out, long long m2,
   for (long long k = 0; k < m2 / 2; ++k)
     hash_g2_body(run, *sh, u, out, m2, k);
 }
+template <int G>
+static void sigma_groups(const int32_t* sig, const int32_t* mask,
+                         const int32_t* lo, const int32_t* hi, int32_t* out,
+                         long long m, SigmaLane* sh, int order) {
+  const HostRun<G> run(order);
+  for (long long l = 0; l < m; ++l)
+    sigma_ladder_body(run, *sh, sig, mask, lo, hi, out, m, l);
+}
+// The butterfly of each chunk: the cluster's blocks step by step, in
+// ``order`` between the cluster barriers.
+static void sigma_fold(int32_t* out, long long m, SigmaFoldShared* sh,
+                       int order) {
+  const HostRun<LH_SIGMA_FOLD_THREADS> run(order);
+  const HostRun<LH_SIGMA_CLUSTER> blocks(order);
+  for (long long c = 0; c < m / LH_LANES; ++c) {
+    const long long lane0 = c * LH_LANES;
+    for (int r = 0; r < LH_SIGMA_CLUSTER; ++r)
+      sigma_fold_load(run, sh[r], out, m, lane0 + r * LH_SIGMA_FOLD_LANES);
+    for (int s = 0; s < LH_SIGMA_STEPS; ++s)
+      for (int i = 0; i < LH_SIGMA_CLUSTER; ++i) {
+        const int r = blocks.perm[i];
+        sigma_fold_step(run, sh[r], [&](int q) { return &sh[q]; }, r, s);
+      }
+    for (int r = 0; r < LH_SIGMA_CLUSTER; ++r)
+      sigma_fold_store(run, sh[r], out, m, lane0 + r * LH_SIGMA_FOLD_LANES);
+  }
+}
+template <int G>
+static void prepare_groups(const int32_t* pk, const int32_t* kmask,
+                           const int32_t* lo, const int32_t* hi, int32_t* out,
+                           int32_t* flags, long long m, int K, PrepShared* sh,
+                           int order) {
+  const HostRun<G> run(order);
+  for (long long s = 0; s < m; ++s)
+    prepare_body(run, *sh, pk, kmask, lo, hi, out, flags, m, K, s);
+}
 extern "C" {
 int host_init(const uint32_t* words, int n) {
   if ((size_t)n * 4 != sizeof(BlsConsts)) return -2;
@@ -83,6 +122,31 @@ int host_hash_g2(const int32_t* u, int32_t* out, long long m2, int G,
   if (G == 32) hash_groups<32>(u, out, m2, sh, order);
   else if (G == 64) hash_groups<64>(u, out, m2, sh, order);
   else hash_groups<128>(u, out, m2, sh, order);
+  free(sh);
+  return 0;
+}
+int host_sigma(const int32_t* sig, const int32_t* mask, const int32_t* lo,
+               const int32_t* hi, int32_t* out, long long m, int G,
+               int order) {
+  SigmaLane* sh = (SigmaLane*)malloc(sizeof(SigmaLane));
+  SigmaFoldShared* fs =
+      (SigmaFoldShared*)malloc(LH_SIGMA_CLUSTER * sizeof(SigmaFoldShared));
+  if (!sh || !fs) return -1;
+  if (G == 32) sigma_groups<32>(sig, mask, lo, hi, out, m, sh, order);
+  else sigma_groups<64>(sig, mask, lo, hi, out, m, sh, order);
+  sigma_fold(out, m, fs, order);
+  free(sh);
+  free(fs);
+  return 0;
+}
+int host_prepare(const int32_t* pk, const int32_t* kmask, const int32_t* lo,
+                 const int32_t* hi, int32_t* out, int32_t* flags, long long m,
+                 int K, int G, int order) {
+  PrepShared* sh = (PrepShared*)malloc(sizeof(PrepShared));
+  if (!sh) return -1;
+  if (G == 8) prepare_groups<8>(pk, kmask, lo, hi, out, flags, m, K, sh, order);
+  else if (G == 16) prepare_groups<16>(pk, kmask, lo, hi, out, flags, m, K, sh, order);
+  else prepare_groups<32>(pk, kmask, lo, hi, out, flags, m, K, sh, order);
   free(sh);
   return 0;
 }
@@ -130,6 +194,10 @@ def host_lib(tmp_path_factory):
     lib.host_hash_g2.argtypes = [P, P, ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int]
     lib.host_finalize.argtypes = [P, P, P, ctypes.c_int]
+    lib.host_sigma.argtypes = [P, P, P, P, P, ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_int]
+    lib.host_prepare.argtypes = [P, P, P, P, P, P, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
     consts = PK.cuda_consts()
     assert lib.host_init(consts.ctypes.data, consts.size) == 0
     return lib
@@ -233,3 +301,113 @@ def test_finalize_body_on_host_in_every_order(host_lib, order):
     ok_p, g_p = PK.finalize_plain(_t(f), with_value=True)
     assert int(ok[0, 0]) == int(ok_p) == 0
     assert np.array_equal(g, g_p.numpy())
+
+
+def _u32_plane(values) -> np.ndarray:
+    return np.asarray(values, np.uint64).astype(np.uint32).view(
+        np.int32).reshape(1, -1)
+
+
+@pytest.fixture(scope="module")
+def sigma_chunk():
+    """One 128-lane chunk as ``sigma_kernel_call`` takes it: live lanes
+    over real G2 points (four, repeated) with random 64-bit scalars, lanes
+    with scalar 1, a 32-bit scalar and scalar 0, a masked lane with a
+    nonzero scalar (its ladder runs from the identity), and dead lanes
+    (mask 0, scalar 0) over the same points; and the plain output (every
+    lane of the chunk holds its own sum).  Few live lanes keep the plain
+    ladder quick; the butterfly runs over all 128."""
+    rng = np.random.default_rng(61)
+    pts = [JC.g2_mul(JC.G2_GEN, int(rng.integers(1, 2 ** 62)))
+           for _ in range(4)]
+    sig = np.zeros((128, S), np.uint32)
+    for j in range(S):
+        sig[:, j] = np.frombuffer(TB._g2_aff_col(pts[j % 4]), np.uint32)
+    mask = np.zeros((1, S), np.int32)
+    lo = np.zeros(S, np.uint64)
+    hi = np.zeros(S, np.uint64)
+    live = [3 * j + j % 2 for j in range(24)]          # spread over the chunk
+    mask[0, live] = 1
+    lo[live] = rng.integers(0, 2 ** 32, 24, dtype=np.uint64)
+    hi[live] = rng.integers(0, 2 ** 32, 24, dtype=np.uint64)
+    lo[live[1]], hi[live[1]] = 1, 0                    # scalar 1
+    hi[live[2]] = 0                                    # a 32-bit scalar
+    lo[live[3]], hi[live[3]] = 0, 0                    # live, scalar 0
+    lo[100], hi[100] = 0x9e3779b9, 0x7f4a7c15          # masked, scalar set
+    sig = sig.view(np.int32)
+    lo, hi = _u32_plane(lo), _u32_plane(hi)
+    want = PK.sigma_plain(_t(sig), _t(mask), _t(lo), _t(hi)).numpy()
+    return sig, mask, lo, hi, want
+
+
+@pytest.mark.parametrize("order", sorted(ORDERS))
+@pytest.mark.parametrize("G", [32, 64])
+def test_sigma_groups_on_host_match_plain(host_lib, sigma_chunk, G, order):
+    """sigma_ladder_body (one group of G threads per lane) and the
+    butterfly's cluster steps against sigma_plain raw over all 128 lanes,
+    with the threads of each phase and the cluster's blocks in
+    ``order``."""
+    sig, mask, lo, hi, want = sigma_chunk
+    out = np.zeros((192, S), np.int32)
+    assert host_lib.host_sigma(sig.ctypes.data, mask.ctypes.data,
+                               lo.ctypes.data, hi.ctypes.data,
+                               out.ctypes.data, S, G, ORDERS[order]) == 0
+    assert np.array_equal(out, want)
+
+
+PREP_K = 3
+
+
+@pytest.fixture(scope="module")
+def prepare_chunk():
+    """One 128-set chunk with K = 3 as ``prepare_kernel_call`` takes it:
+    real G1 keys (eight, cycled) with random 64-bit scalars, sets with a
+    masked slot, a set whose keys are P and -P (its sum is the identity),
+    dead sets (no live slot, scalar 0) and a keyless set with a scalar;
+    and the plain output and flags."""
+    rng = np.random.default_rng(62)
+    keys = [JC.g1_mul(JC.G1_GEN, int(rng.integers(1, 2 ** 62)))
+            for _ in range(8)]
+    pk = np.zeros((64, PREP_K * S), np.uint32)
+    kmask = np.ones((1, PREP_K * S), np.int32)
+    for s_ in range(S):
+        for k in range(PREP_K):
+            pk[:, k * S + s_] = np.frombuffer(
+                TB._g1_aff_col(keys[(3 * s_ + k) % 8]), np.uint32)
+    kmask[0, 1 * S + 5] = 0                  # set 5: slot 1 masked
+    kmask[0, 0 * S + 6] = kmask[0, 2 * S + 6] = 0    # set 6: slot 1 only
+    p = keys[3]
+    pk[:, 0 * S + 77] = np.frombuffer(TB._g1_aff_col(p), np.uint32)
+    pk[:, 1 * S + 77] = np.frombuffer(TB._g1_aff_col(JC.g1_neg(p)), np.uint32)
+    kmask[0, 2 * S + 77] = 0                 # set 77: P + (-P)
+    lo = rng.integers(0, 2 ** 32, S, dtype=np.uint64)
+    hi = rng.integers(0, 2 ** 32, S, dtype=np.uint64)
+    for s_ in range(110, 121):               # dead sets, then keyless 120
+        kmask[0, [k * S + s_ for k in range(PREP_K)]] = 0
+    lo[110:120], hi[110:120] = 0, 0
+    lo[121], hi[121] = 1, 0
+    pk = pk.view(np.int32)
+    lo, hi = _u32_plane(lo), _u32_plane(hi)
+    g, f = PK.prepare_plain(_t(pk), _t(kmask), _t(lo), _t(hi), PREP_K)
+    return pk, kmask, lo, hi, g.numpy(), f.numpy()
+
+
+@pytest.mark.parametrize("order", sorted(ORDERS))
+@pytest.mark.parametrize("G", [8, 16, 32])
+def test_prepare_groups_on_host_match_plain(host_lib, prepare_chunk, G,
+                                            order):
+    """prepare_body (one group of G threads per set; 8 and 16 are
+    sub-warp groups) against prepare_plain raw, points and flags, with the
+    threads of each phase in ``order``."""
+    pk, kmask, lo, hi, want_g, want_f = prepare_chunk
+    out = np.zeros((64, S), np.int32)
+    flags = np.zeros((1, S), np.int32)
+    assert host_lib.host_prepare(pk.ctypes.data, kmask.ctypes.data,
+                                 lo.ctypes.data, hi.ctypes.data,
+                                 out.ctypes.data, flags.ctypes.data, S,
+                                 PREP_K, G, ORDERS[order]) == 0
+    assert np.array_equal(out, want_g)
+    assert np.array_equal(flags, want_f)
+    for s_ in (77, 110, 119, 120):           # identity sums and dead sets
+        assert flags[0, s_] == 1 and not out[:, s_].any()
+    assert flags[0, 0] == 0 and flags[0, 5] == 0 and flags[0, 6] == 0
