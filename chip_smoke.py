@@ -37,13 +37,13 @@ Phases, each of which fails the run with a non-zero exit:
    not.  Outputs agree limb for limb and the verdict exactly; 4 hash
    columns match the host ``hash_to_g2``.  A probe times one thread's
    chain of dependent Montgomery products: the latency of one prices the
-   chain bounds of sigma_combine, finalize, Miller+fold, hash-to-G2,
-   sigma and prepare, whose critical paths are dependent chains.  Each
-   kernel is timed with CUDA events beside its plain version and its
-   bounds.  The group kernels (one thread group per lane pair, message,
-   lane or set; the sigma butterfly a cluster of blocks per chunk) print
-   their launch shape, shared memory, registers and stack, and
-   compute-sanitizer's racecheck runs on one cell or chunk of each in a
+   chain bounds of the BLS kernels, whose critical paths are dependent
+   chains.  Each kernel is timed with CUDA events beside its plain
+   version and its bounds.  The group kernels (one thread group per lane
+   pair, message, lane, set or output lane; the sigma butterfly a
+   cluster of blocks per chunk) print their launch shape, shared memory,
+   registers and stack, and compute-sanitizer's racecheck runs on one
+   cell or chunk of Miller+fold, hash-to-G2, sigma and prepare in a
    child process where the toolkit has it and the card allows it (else
    the script says it did not run).
 6. ``verify_signature_sets`` of the port's default (``tpu``) backend on the
@@ -56,9 +56,10 @@ Phases, each of which fails the run with a non-zero exit:
 7. The general path's kernels against their plain versions on the card,
    limb for limb, at its shapes: prepare on BASELINE row 1's marshalled
    batch (K = 16, C = 8) and again with masked key slots, a set whose
-   keys are P and −P and dead lanes; Miller at 256 and 1024 lanes;
-   product_chunks on 640 lanes padded with a ONE block (768), with and
-   without a mask; product at 512 lanes; finalize at 256 and 512 lanes;
+   keys are P and −P and dead lanes; Miller at 256, 384 and 1024 lanes;
+   product_chunks on 640 lanes padded with a ONE block (768) and on 512
+   and 256 lanes (the path's three shapes), with and without a mask;
+   product at 512 lanes; finalize at 256 and 512 lanes;
    and PR 2's kernels at this path's shapes: hash-to-G2 on 8 cells,
    sigma on C = 8, sigma_combine on its C = 8 partial and on an all-dead
    one, Miller+fold on the padded 1280-lane cell (1025 live).
@@ -87,8 +88,9 @@ Phases, each of which fails the run with a non-zero exit:
     with its launches counted and its time printed.
 
 The line before the last is one JSON object with each kernel's launches,
-error, time, plain-version time and bound (for sigma_combine, finalize,
-Miller+fold, hash-to-G2, sigma and prepare also their chain bound;
+error, time, plain-version time and bound (for every BLS kernel also its
+chain bound; the group kernels their launch shape, registers and stack;
+product_chunks and Miller their time at each shape phase 7 drives;
 Miller+fold, hash-to-G2 and sigma take ``ms`` at the shared path's
 shapes and add ``ms_general`` and its bounds at the general path's,
 prepare adds ``ms_block`` and its chain bounds on the block batch's two
@@ -127,6 +129,7 @@ SYNC_PARTICIPATION = 460 / 512
 SHARED_PATH_KERNELS = ("hash_g2", "sigma", "sigma_combine", "miller_fold",
                        "finalize")
 CHAIN_SHORT, CHAIN_LONG = 1000, 21000   # dependent products of the probe
+SPIN_CYCLES = 20_000_000      # ~10 ms at 2 GHz: the queue ahead of queued_ms
 MAX_WARM_LAUNCHES = 200       # CUDA kernels per warm general verify
 # A launch counter that counts a call of two CUDA kernels (the sigma
 # ladder, then its butterfly), and the traced kernel names it counts.
@@ -256,6 +259,32 @@ def cuda_ms(torch, fn, runs: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(torch, fn, runs: int) -> float:
+    """Device milliseconds per call of ``fn()`` with the calls queued back
+    to back: a spin kernel holds the stream while the host enqueues
+    ``runs`` calls between two events, so the host's own time per call
+    (wrapper, ctypes, launch) is not counted where it is longer than the
+    kernel, as it is in :func:`cuda_ms`.  Fails if the host did not finish
+    enqueueing before the spin ended."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    b.synchronize()
+    check(host_ms < SPIN_CYCLES / 4e6,      # half the spin at up to 2 GHz
+          f"queued timing: the host took {host_ms:.3f} ms to enqueue, not "
+          f"within the spin")
+    return a.elapsed_time(b) / runs
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -661,7 +690,7 @@ def mont_bound_ms(hw: dict, products: int) -> float:
         INT32_LANES_PER_SM * hw["sms"] * hw["clk_hz"]) * 1e3
 
 
-def chain_products(PK, kernel: str, C=None, K=None) -> int:
+def chain_products(PK, kernel: str, C=None, K=None, M=None) -> int:
     """The critical path in dependent Montgomery products, where the
     independent products of one tower step (one wave of a thread group)
     count as one, worked out from the kernels' formulas
@@ -692,7 +721,10 @@ def chain_products(PK, kernel: str, C=None, K=None) -> int:
     and the 7 butterfly steps (one addition, two waves, each).
     ``prepare`` with K key slots: the K in-order additions (two waves
     each), the 64-bit ladder (two waves a bit), the Fermat ladder of Z,
-    then X·zi beside Y·zi."""
+    then X·zi beside Y·zi.  ``miller``: Miller+fold's loop without the
+    fold.  ``product_chunks``: one Fq12 product (one wave).  ``product``
+    on M lanes: the roll butterfly's log2(M / 128) levels, one Fq12
+    product each."""
     ladder = len(PK.P_MINUS_2_BITS) + int(sum(PK.P_MINUS_2_BITS))
     x_adds = len(PK.X_BITS_FULL) + int(sum(PK.X_BITS_FULL))
     if kernel == "sigma_combine":
@@ -700,9 +732,13 @@ def chain_products(PK, kernel: str, C=None, K=None) -> int:
     if kernel == "finalize":
         fold = PK.LANE_BLOCK.bit_length() - 1
         return fold + (10 + ladder) + (5 * x_adds + 6)
-    if kernel == "miller_fold":
+    if kernel in ("miller_fold", "miller"):
         return (4 * len(PK.X_BITS_MILLER) + 3 * int(sum(PK.X_BITS_MILLER))
-                + 1)
+                + (kernel == "miller_fold"))
+    if kernel == "product_chunks":
+        return 1
+    if kernel == "product":
+        return (M // PK.LANE_BLOCK).bit_length() - 1
     if kernel == "sigma":
         return 2 * 64 + 2 * (PK.LANE_BLOCK.bit_length() - 1)
     if kernel == "prepare":
@@ -810,19 +846,23 @@ def plain_products(PK, fn) -> int:
 
 def group_configs(torch, PK, hw: dict) -> dict:
     """The group kernels' launch shapes at the paths' sizes (one group per
-    lane pair for Miller+fold on 256 and 1280 lanes, per message for
-    hash-to-G2 on 2 and 8 cells, per lane for the sigma ladder at C = 2 and
-    8, per set for prepare on the block batch's 256 sets and BASELINE row
-    1's 1024; the sigma butterfly one block of a cluster per 16 lanes),
-    their dynamic shared memory and what ptxas gave them.  At the general
-    path's sizes every SM gets a block, and the butterfly a cluster per
-    chunk (64 blocks at C = 8)."""
+    lane pair for Miller+fold on 256 and 1280 lanes and for the Miller
+    loop alone on 256 and 1024, per message for hash-to-G2 on 2 and 8
+    cells, per lane for the sigma ladder at C = 2 and 8, per set for
+    prepare on the block batch's 256 sets and BASELINE row 1's 1024, per
+    output lane for product_chunks on the general path's 256, 512 and 768
+    input lanes; the sigma butterfly one block of a cluster per 16
+    lanes), their dynamic shared memory and what ptxas gave them.  At the
+    general path's largest sizes every SM gets a block, and the butterfly
+    a cluster per chunk (64 blocks at C = 8)."""
     out = {}
     for which, sizes in (("miller_fold", (256, 1280)),
                          ("hash_g2", (2 * 256, 8 * 256)),
                          ("sigma", (2 * 128, 8 * 128)),
                          ("sigma_fold", (2 * 128, 8 * 128)),
-                         ("prepare", (2 * 128, GEN_SETS))):
+                         ("prepare", (2 * 128, GEN_SETS)),
+                         ("product_chunks", (256, 512, 768)),
+                         ("miller", (256, GEN_SETS))):
         info = PK.group_kernel_info(which)
         blocks = [n // info["lanes_per_group"] // info["groups"]
                   for n in sizes]
@@ -1474,14 +1514,21 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
         chain = chain_products(PK, name)
         errs[name] = compare_once(name, kern, plain, ins, shape, chain)
 
-    # miller at 256 and 1024 lanes on the path's points (c·aggpk, H(m))
-    err = 0
-    for m in (256, GEN_SETS):
+    # miller at 256, 384 (three blocks) and 1024 lanes on the path's
+    # points (c·aggpk, H(m)), each shape timed
+    err, miller_ms = 0, {}
+    for m in (256, 384, GEN_SETS):
         g1m, g2m = g1_aff[:, :m].contiguous(), h_cols[:, :m].contiguous()
         err = max(err, max_abs_err(torch, PK.miller_kernel_call(g1m, g2m),
                                    PK.miller_plain(g1m, g2m)))
+        miller_ms[m] = cuda_ms(torch, lambda g1m=g1m, g2m=g2m:
+                               PK.miller_kernel_call(g1m, g2m),
+                               BLS_TIMED_RUNS)
     errs["miller"] = err
     check(err == 0, "miller kernel != plain (raw limbs)")
+    print(f"miller ms by lanes (median of {BLS_TIMED_RUNS}): "
+          f"{ {k: round(v, 4) for k, v in miller_ms.items()} } "
+          f"[{hw['card']}]")
     f = PK.miller_kernel_call(g1_aff, h_cols)
     for lane in (3,):
         P1 = tuple(lane_ints(g1_aff, lane))
@@ -1493,20 +1540,36 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     record("miller", lambda: PK.miller_kernel_call(g1_aff, h_cols),
            lambda: PK.miller_plain(g1_aff, h_cols),
            plain_products(PK, lambda: PK.miller_plain(g1_aff, h_cols)),
-           4 * (64 + 128 + 384) * GEN_SETS, f"{GEN_SETS} lanes")
+           4 * (64 + 128 + 384) * GEN_SETS, f"{GEN_SETS} lanes",
+           chain=chain_products(PK, "miller"))
+    timing["miller"]["ms_by_lanes"] = miller_ms
 
-    # product_chunks: 5 blocks padded with the ONE block, masked or not
+    # product_chunks at the main path's shapes: 5 blocks padded with the
+    # ONE block (768 lanes), then 512 and 256, masked or not, each timed
     one = torch.from_numpy(TB._ONE_BLOCK.view(np.int32)).to(dev)
     f768 = torch.cat([f[:, :640], one], 1)
     ones = torch.ones((1, 768), dtype=torch.int32, device=dev)
     rmask = dev32((rng.random((1, 768)) < 0.7).astype(np.int32))
-    err = 0
-    for mk in (ones, rmask):
-        err = max(err, max_abs_err(
-            torch, PK.product_chunks_kernel_call(f768, mk),
-            PK.product_chunks_plain(f768, mk)))
+    err, pc_ms, pc_paced = 0, {}, {}
+    for lanes in (768, 512, 256):
+        fl, ol = f768[:, :lanes].contiguous(), ones[:, :lanes].contiguous()
+        for mk in (ol, rmask[:, :lanes].contiguous()):
+            err = max(err, max_abs_err(
+                torch, PK.product_chunks_kernel_call(fl, mk),
+                PK.product_chunks_plain(fl, mk)))
+        pc_paced[lanes] = cuda_ms(torch, lambda fl=fl, ol=ol:
+                                  PK.product_chunks_kernel_call(fl, ol),
+                                  BLS_TIMED_RUNS)
+        pc_ms[lanes] = queued_ms(torch, lambda fl=fl, ol=ol:
+                                 PK.product_chunks_kernel_call(fl, ol),
+                                 BLS_TIMED_RUNS)
     errs["product_chunks"] = err
     check(err == 0, "product_chunks kernel != plain (raw limbs)")
+    print(f"product_chunks ms by input lanes, {BLS_TIMED_RUNS} calls queued "
+          f"behind a spin (device time a call): "
+          f"{ {k: round(v, 4) for k, v in pc_ms.items()} }; one call at a "
+          f"time (median of {BLS_TIMED_RUNS}, the host's launch included): "
+          f"{ {k: round(v, 4) for k, v in pc_paced.items()} } [{hw['card']}]")
     pc = PK.product_chunks_kernel_call(f768, ones)
     for lane in (0, 2 * 128 + 9):        # chunk 2: lanes 521 and 649
         c, j = divmod(lane, 128)
@@ -1517,7 +1580,10 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
            lambda: PK.product_chunks_kernel_call(f768, ones),
            lambda: PK.product_chunks_plain(f768, ones),
            plain_products(PK, lambda: PK.product_chunks_plain(f768, ones)),
-           4 * (384 * 768 + 768 + 384 * 384), "768 -> 384 lanes")
+           4 * (384 * 768 + 768 + 384 * 384), "768 -> 384 lanes",
+           chain=chain_products(PK, "product_chunks"))
+    timing["product_chunks"].update(ms=pc_ms[768], ms_paced=pc_paced[768],
+                                    ms_by_lanes=pc_ms)
 
     # product at 512 lanes with a mask
     f512 = f[:, :512].contiguous()
@@ -1533,7 +1599,8 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     record("product", lambda: PK.product_kernel_call(f512, m512),
            lambda: PK.product_plain(f512, m512),
            plain_products(PK, lambda: PK.product_plain(f512, m512)),
-           4 * (384 * 512 * 2 + 512), "512 lanes")
+           4 * (384 * 512 * 2 + 512), "512 lanes",
+           chain=chain_products(PK, "product", M=512))
 
     # finalize at 256 and 512 lanes: a product of 1 (the path's valid
     # product beside ONE blocks) and one that is not 1
@@ -2001,6 +2068,10 @@ def main() -> None:
                     "lighthouse_tpu/crypto/pairing_kernel.py:1021"}
     kernels = []
 
+    def launch_keys(info):
+        return {f"{k}_launch": info[k]
+                for k in ("G", "groups", "registers", "local_bytes")}
+
     def row(name, source, launches, err, t):
         out = {"name": name, "route": "cuda",
                "source": f"lighthouse_tpu_torch/csrc/{source}",
@@ -2030,8 +2101,7 @@ def main() -> None:
                 rate_bound_ms_general=g["bound_ms"],
                 chain_bound_ms_general=g["chain_bound_ms"],
                 binds_general=g["binds"], plain_ms_general=g["plain_ms"],
-                **{f"{k}_launch": v for k, v in bk["groups"][name].items()
-                   if k in ("G", "groups")})
+                **launch_keys(bk["groups"][name]))
     row("sigma_combine", "bls381.cu", gv["launches"]["sigma_combine"],
         max(bk["errs"]["sigma_combine"], gk["errs"]["sigma_combine"]),
         gk["timing"]["sigma_combine"])
@@ -2041,14 +2111,18 @@ def main() -> None:
     for name in ("prepare", "product_chunks", "miller", "product"):
         row(name, "bls381.cu", launches[name], general_errs[name],
             gk["timing"][name])
+        if name in ("product_chunks", "miller"):
+            t = gk["timing"][name]
+            kernels[-1].update(**{k: t[k] for k in ("ms_by_lanes", "ms_paced")
+                                  if k in t},
+                               **launch_keys(bk["groups"][name]))
         if name == "prepare":           # the block batch's two work items
             kernels[-1].update(
                 ms_block=[t["ms"] for t in blk["prepare_block"]],
                 K_block=[t["K"] for t in blk["prepare_block"]],
                 chain_bound_ms_block=[t["chain_bound_ms"]
                                       for t in blk["prepare_block"]],
-                **{f"{k}_launch": v for k, v in bk["groups"][name].items()
-                   if k in ("G", "groups")})
+                **launch_keys(bk["groups"][name]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(hw["card"])
     print(json.dumps({"kernels": kernels}))

@@ -20,9 +20,12 @@ core in ``csrc/bls381_field.cuh``, built at first use by
   step's independent products; :func:`group_kernel_info` reports the
   group kernels' launch shapes;
 - :func:`miller_kernel_call` — the Miller loop alone, every lane
-  (replaces ``_miller_kernel``; the stage profile runs it);
+  (replaces ``_miller_kernel``; the stage profile runs it).  One thread
+  group per lane pair on Miller+fold's load phase and loop;
 - :func:`product_chunks_kernel_call` — per 256-lane chunk, the masked
-  product of lane j and lane j+128 (replaces ``_product_chunk_kernel``);
+  product of lane j and lane j+128 (replaces ``_product_chunk_kernel``).
+  One thread group per output lane runs the Fq12 product's 54 Montgomery
+  products as one wave;
 - :func:`product_kernel_call` — the masked roll butterfly down to the 128
   residue-class products (replaces ``_product_kernel``);
 - :func:`finalize_kernel_call` — ``product_chunks`` down to 128 lanes,
@@ -1172,9 +1175,10 @@ def kernel_library() -> ctypes.CDLL:
 
 
 # The thread-group kernels, in ``lh_group_kernel_info``'s order: Miller+fold,
-# hash-to-G2, the sigma ladder, prepare, and the sigma butterfly (whose
-# group is one block of its cluster).
-GROUP_KERNELS = ("miller_fold", "hash_g2", "sigma", "prepare", "sigma_fold")
+# hash-to-G2, the sigma ladder, prepare, the sigma butterfly (whose group
+# is one block of its cluster), product_chunks and the Miller loop alone.
+GROUP_KERNELS = ("miller_fold", "hash_g2", "sigma", "prepare", "sigma_fold",
+                 "product_chunks", "miller")
 
 
 def group_kernel_info(which: str) -> dict:

@@ -30,9 +30,8 @@
 // counted once, times the latency of one dependent product) is the larger.
 // The reference's formulas run in the reference's order in every design.
 //
-// One thread per lane: product_chunks and the unfused Miller kernel
-// (ladders rolled, tower functions __noinline__); the product butterfly
-// runs 128 threads, one per residue class mod 128; sigma_combine runs each
+// The product butterfly runs 128 threads, one per residue class mod 128
+// (ladders rolled, tower functions __noinline__); sigma_combine runs each
 // partial's chain (about 600-900 products) on one thread.
 //
 // Thread groups sharing each tower step (the cooperative phases of
@@ -40,16 +39,26 @@
 // wave on the group's threads, its additions as item phases, then the
 // group's barrier.  finalize is one 256-thread group (the block): each step
 // of its 983-product chain costs a wave, not 54 products in a row.
-// Miller+fold, hash-to-G2, the sigma ladder and prepare run one small group
-// per lane pair, message, lane or set (LH_*_G threads; several groups a
-// block, enough blocks for every SM at the general path's sizes), so their
-// many independent chains fill the card and each chain is a few hundred
-// waves:
+// Miller+fold, the Miller loop alone, hash-to-G2, the sigma ladder,
+// prepare and product_chunks run one small group per lane pair, message,
+// lane, set or output lane (LH_*_G threads; several groups a block, enough
+// blocks for every SM at the general path's sizes), so their many
+// independent chains fill the card and each chain is a few hundred waves:
 //   lh_miller_fold_kernel replaces _miller_fold_kernel (pairing_kernel.py
 //     :893, pallas_call :938).  Rate bound at 1280 lanes (1025 live) 1.02
 //     ms; chain bound 268 products (four waves a doubling step, three an
 //     addition step, the fold), about 0.40 ms, which binds at the shared
 //     path's 2 live lanes.
+//   lh_miller_kernel replaces _miller_kernel (pairing_kernel.py :742,
+//     pallas_call :781): Miller+fold's load phase and loop on lanes 2p and
+//     2p + 1 (every lane live), both values stored.  Rate bound at 1024
+//     lanes 1.02 ms; chain bound 267 products (about 0.40 ms).
+//   lh_product_chunks_kernel replaces _product_chunk_kernel
+//     (pairing_kernel.py :853, pallas_call :877): one Fq12 product a
+//     group, its 54 Montgomery products as one wave.  Its rate bound (54
+//     products an output lane, 0.0018 ms at 384 output lanes) and chain
+//     bound (one dependent product, about 0.0015 ms) sit below a launch:
+//     the load, one wave, the post phases and the launch set its time.
 //   lh_hash_g2_kernel replaces _hash_g2_kernel (htc_kernel.py :247,
 //     pallas_call :285).  Chain bound 2,288 products (about 3.4 ms), which
 //     binds at both paths' sizes (the rate bound prices the plain version's
@@ -195,29 +204,36 @@ lh_prepare_kernel(const int32_t* __restrict__ pk,
                hi, out, flags, m, K, (long long)blockIdx.x * groups + gi);
 }
 
-// --- product_chunks: one block per 256-lane chunk, a thread per output lane --
-// Output lane j of chunk c is the masked f_{c*256+j} * f_{c*256+j+128}.
-__global__ void __launch_bounds__(LANE_BLOCK)
+// --- product_chunks: one group of G threads per output lane ------------------
+// product_pair_body (bls381_field.cuh): output lane j of chunk c is the
+// masked f_{c*256+j} * f_{c*256+j+128}, one wave of its 54 products over
+// the group; the operands and the wave's values sit in shared memory
+// (PairShared, one per group).
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX)
 lh_product_chunks_kernel(const int32_t* __restrict__ f,
-                         const int32_t* __restrict__ mask,
-                         int32_t* __restrict__ out, long long m) {
-  const int tid = threadIdx.x;
-  const long long a = (long long)blockIdx.x * 2 * LANE_BLOCK + tid;
-  const Fp12 fa = fp12_masked(f, mask, m, a);
-  const Fp12 fb = fp12_masked(f, mask, m, a + LANE_BLOCK);
-  store_fp12(out, m / 2, (long long)blockIdx.x * LANE_BLOCK + tid,
-             fp12_mul(fa, fb));
+                         const int32_t* __restrict__ mask, int32_t* out,
+                         long long m) {
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  product_pair_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+                    reinterpret_cast<PairShared*>(lh_group_smem)[gi], f, mask,
+                    out, m, (long long)blockIdx.x * groups + gi);
 }
 
-// --- Miller loop alone: one block per 128 lanes, a thread per lane -----------
-__global__ void __launch_bounds__(LANE_BLOCK)
+// --- Miller loop alone: one group of G threads per lane pair ----------------
+// miller_body (bls381_field.cuh): lanes 2p and 2p + 1, both live, through
+// Miller+fold's load phase and loop (MillerShared, one per group), then
+// both conjugated values stored.  Miller+fold's register cap.
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX, 2)
 lh_miller_kernel(const int32_t* __restrict__ g1,
-                 const int32_t* __restrict__ g2, int32_t* __restrict__ out,
-                 long long m) {
-  const long long lane = (long long)blockIdx.x * LANE_BLOCK + threadIdx.x;
-  store_fp12(out, m, lane,
-             miller_loop(load_fp(g1, m, lane, 0), load_fp(g1, m, lane, 1),
-                         load_fp2(g2, m, lane, 0), load_fp2(g2, m, lane, 2)));
+                 const int32_t* __restrict__ g2, int32_t* out, long long m) {
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  miller_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+              reinterpret_cast<MillerShared*>(lh_group_smem)[gi], g1, g2, out,
+              m, (long long)blockIdx.x * groups + gi);
 }
 
 // --- product: the roll butterfly, a thread per residue class mod 128 ---------
@@ -310,25 +326,30 @@ int lh_miller_fold(const int32_t* g1, const int32_t* g2, const int32_t* mask,
 
 // A group kernel's launch shape (which: 0 Miller+fold, 1 hash-to-G2, 2 the
 // sigma ladder, 3 prepare, 4 the sigma butterfly, whose group is its block
-// of a cluster) and what ptxas gave it: info = {threads a group, groups a
-// block, shared bytes a group, registers a thread, local (stack) bytes a
-// thread, lanes a group, blocks a cluster}.
+// of a cluster, 5 product_chunks, 6 the Miller loop alone) and what ptxas
+// gave it: info = {threads a group, groups a block, shared bytes a group,
+// registers a thread, local (stack) bytes a thread, input lanes a group,
+// blocks a cluster}.
 int lh_group_kernel_info(int which, int* info) {
-  static const int shape[5][5] = {
+  static const int shape[7][5] = {
       {LH_MILLER_G, LH_MILLER_GROUPS, (int)sizeof(MillerShared), 2, 1},
       {LH_HASH_G, LH_HASH_GROUPS, (int)sizeof(HashShared), 2, 1},
       {LH_SIGMA_G, LH_SIGMA_GROUPS, (int)sizeof(SigmaLane), 1, 1},
       {LH_PREP_G, LH_PREP_GROUPS, (int)sizeof(PrepShared), 1, 1},
       {LH_SIGMA_FOLD_THREADS, 1, (int)sizeof(SigmaFoldShared),
-       LH_SIGMA_FOLD_LANES, LH_SIGMA_CLUSTER}};
-  if (which < 0 || which > 4) return (int)cudaErrorInvalidValue;
+       LH_SIGMA_FOLD_LANES, LH_SIGMA_CLUSTER},
+      {LH_PCHUNK_G, LH_PCHUNK_GROUPS, (int)sizeof(PairShared), 2, 1},
+      {LH_MLOOP_G, LH_MLOOP_GROUPS, (int)sizeof(MillerShared), 2, 1}};
+  if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e =
       which == 0   ? cudaFuncGetAttributes(&a, lh_miller_fold_kernel<LH_MILLER_G>)
       : which == 1 ? cudaFuncGetAttributes(&a, lh_hash_g2_kernel<LH_HASH_G>)
       : which == 2 ? cudaFuncGetAttributes(&a, lh_sigma_ladder_kernel<LH_SIGMA_G>)
       : which == 3 ? cudaFuncGetAttributes(&a, lh_prepare_kernel<LH_PREP_G>)
-                   : cudaFuncGetAttributes(&a, lh_sigma_fold_kernel);
+      : which == 4 ? cudaFuncGetAttributes(&a, lh_sigma_fold_kernel)
+      : which == 5 ? cudaFuncGetAttributes(&a, lh_product_chunks_kernel<LH_PCHUNK_G>)
+                   : cudaFuncGetAttributes(&a, lh_miller_kernel<LH_MLOOP_G>);
   if (e != cudaSuccess) return (int)e;
   for (int i = 0; i < 3; ++i) info[i] = shape[which][i];
   info[3] = a.numRegs;
@@ -365,16 +386,16 @@ int lh_prepare(const int32_t* pk, const int32_t* kmask, const int32_t* lo,
 
 int lh_product_chunks(const int32_t* f, const int32_t* mask, int32_t* out,
                       long long m, void* stream) {
-  lh_product_chunks_kernel<<<(unsigned)(m / (2 * LANE_BLOCK)), LANE_BLOCK, 0,
-                             (cudaStream_t)stream>>>(f, mask, out, m);
-  return (int)cudaGetLastError();
+  return launch_groups<PairShared, LH_PCHUNK_G, LH_PCHUNK_GROUPS>(
+      lh_product_chunks_kernel<LH_PCHUNK_G>, m / 2, stream,   // a group an
+      f, mask, out, m);                                         // output lane
 }
 
 int lh_miller(const int32_t* g1, const int32_t* g2, int32_t* out, long long m,
               void* stream) {
-  lh_miller_kernel<<<(unsigned)(m / LANE_BLOCK), LANE_BLOCK, 0,
-                     (cudaStream_t)stream>>>(g1, g2, out, m);
-  return (int)cudaGetLastError();
+  return launch_groups<MillerShared, LH_MLOOP_G, LH_MLOOP_GROUPS>(
+      lh_miller_kernel<LH_MLOOP_G>, m / 2, stream,   // a lane pair
+      g1, g2, out, m);
 }
 
 int lh_product(const int32_t* f, const int32_t* mask, int32_t* scratch,

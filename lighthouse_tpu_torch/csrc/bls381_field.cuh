@@ -303,9 +303,6 @@ LH_NI Fp2 fp2_mul_schoolbook(const Fp2& a, const Fp2& b) {
   return {fp_sub(fp_mul(a.c0, b.c0), fp_mul(a.c1, b.c1)),
           fp_add(fp_mul(a.c0, b.c1), fp_mul(a.c1, b.c0))};
 }
-LH_FN Fp2 fp2_mul_fp(const Fp2& a, const Fp& s) {
-  return {fp_mul(a.c0, s), fp_mul(a.c1, s)};
-}
 LH_FN bool fp2_is_zero(const Fp2& a) {
   return fp_is_zero(a.c0) && fp_is_zero(a.c1);
 }
@@ -360,13 +357,6 @@ LH_NI Fp12 fp12_mul(const Fp12& a, const Fp12& b) {
   Fp12 r;
   r.c[0] = fp6_add(v00, fp6_mul_by_v(v11));
   r.c[1] = fp6_sub(vxx, fp6_add(v00, v11));
-  return r;
-}
-
-LH_FN Fp12 fp12_conj(const Fp12& a) {
-  Fp12 r;
-  r.c[0] = a.c[0];
-  r.c[1] = fp6_neg(a.c[1]);
   return r;
 }
 
@@ -529,48 +519,6 @@ LH_FN Fp12 line_fp12(const Fp2& A, const Fp2& B, const Fp2& C) {
   return l;
 }
 
-// f <- f^2 * l_{T,T}(P), T <- 2T  (_miller_dbl_step)
-LH_NI void miller_dbl(Fp12& f, G2P& T, const Fp& xP, const Fp& yP) {
-  Fp2 XX = fp2_mul(T.X, T.X);
-  Fp2 YY = fp2_mul(T.Y, T.Y);
-  Fp2 ZZ = fp2_mul(T.Z, T.Z);
-  Fp2 X3 = fp2_mul(T.X, XX);
-  Fp2 Y2Z = fp2_mul(YY, T.Z);
-  Fp2 X2Z = fp2_mul(XX, T.Z);
-  Fp2 YZ2 = fp2_mul(T.Y, ZZ);
-  Fp2 A = fp2_sub(fp2_muls(X3, 3), fp2_muls(Y2Z, 2));
-  Fp2 B = fp2_neg(fp2_mul_fp(fp2_muls(X2Z, 3), xP));
-  Fp2 C = fp2_mul_fp(fp2_muls(YZ2, 2), yP);
-  T = g2_add(T, T);
-  f = fp12_mul(fp12_mul(f, f), line_fp12(A, B, C));
-}
-
-// f <- f * l_{T,Q}(P), T <- T + Q  (_miller_add_step)
-LH_NI void miller_add(Fp12& f, G2P& T, const G2P& Q, const Fp& xP,
-                      const Fp& yP) {
-  Fp2 Nn = fp2_sub(fp2_mul(Q.Y, T.Z), T.Y);
-  Fp2 Dd = fp2_sub(fp2_mul(Q.X, T.Z), T.X);
-  Fp2 A = fp2_sub(fp2_mul(Nn, Q.X), fp2_mul(Q.Y, Dd));
-  Fp2 B = fp2_neg(fp2_mul_fp(Nn, xP));
-  Fp2 C = fp2_mul_fp(Dd, yP);
-  T = g2_add(T, Q);
-  f = fp12_mul(f, line_fp12(A, B, C));
-}
-
-// Conjugated Miller loop over the 63 bits of |x| below its top bit.
-LH_FN Fp12 miller_loop(const Fp& xP, const Fp& yP, const Fp2& Qx,
-                       const Fp2& Qy) {
-  const G2P Q = {Qx, Qy, fp2_one()};
-  G2P T = Q;
-  Fp12 f = fp12_one();
-#pragma unroll 1
-  for (int b = (int)KC.x_bits - 2; b >= 0; --b) {
-    miller_dbl(f, T, xP, yP);
-    if (exp_bit(KC.xabs, (uint32_t)b)) miller_add(f, T, Q, xP, yP);
-  }
-  return fp12_conj(f);   // x < 0
-}
-
 // --- the general batch verify -----------------------------------------------
 
 // Lane ``lane`` of an Fq12 plane, or 1 where the mask is 0.
@@ -655,10 +603,11 @@ LH_FN int sigma_combine_lane(const int32_t* part, long long m, int C,
 // limb for limb.  A
 // dependent chain of tower steps then costs one wave of products per step
 // (plus its additions and barriers), not the step's products in a row.
-// Finalize runs one group of LH_COOP_THREADS (the block); Miller+fold,
-// hash-to-G2 and the sigma ladder run many small groups per block, one per
-// lane pair, message or lane; prepare runs sub-warp groups, several sets a
-// warp; the sigma butterfly runs a cluster of blocks per chunk.  Measured on
+// Finalize runs one group of LH_COOP_THREADS (the block); Miller+fold, the
+// Miller loop alone, hash-to-G2, the sigma ladder and product_chunks run
+// many small groups per block, one per lane pair, message, lane or output
+// lane; prepare runs sub-warp groups, several sets a warp; the sigma
+// butterfly runs a cluster of blocks per chunk.  Measured on
 // the H100 (the phase profile of probe_group_kernels.py): a dependent
 // addition costs about a twentieth of a product, and a phase costs the serial
 // sum of every item kind its warp holds, so the items of a phase share one
@@ -1259,16 +1208,25 @@ LH_FN void finalize_body(const Run& run, FinShared& sh, const int32_t* f,
 #define LH_SIGMA_GROUPS 2
 #define LH_PREP_G 16
 #define LH_PREP_GROUPS 2
+#define LH_PCHUNK_G 64
+#define LH_PCHUNK_GROUPS 2
+#define LH_MLOOP_G 64          // the Miller loop alone
+#define LH_MLOOP_GROUPS 2
 #define LH_SIGMA_CLUSTER 8
 #define LH_SIGMA_FOLD_LANES (LH_LANES / LH_SIGMA_CLUSTER)
 #define LH_SIGMA_FOLD_THREADS (18 * LH_SIGMA_FOLD_LANES)
 
 // ---------------------------------------------------------------------------
-// Miller loop + fold: one group per lane pair (j, j + 128) of a 256-lane cell
+// Miller loops: one group per lane pair
 // ---------------------------------------------------------------------------
 //
-// The conjugated Miller loop of each live lane of the pair (miller_loop's
-// formulas: a dead lane skips it and is Fq12 ONE), then f_j * f_{j+128}.
+// The conjugated Miller loop of each live lane of the pair (the formulas
+// of the plain version's miller_dbl_step, miller_add_step and miller_loop
+// in crypto/pairing_kernel.py, in their order; a dead lane skips it and is
+// Fq12 ONE), in three pieces: miller_pair_load, miller_pair_loop, and a
+// tail.  Miller+fold (miller_fold_body) pairs lanes j and j + 128 of a
+// 256-lane cell and stores f_j * f_{j+128}; the Miller loop alone
+// (miller_body) pairs lanes 2p and 2p + 1 and stores both values.
 // A doubling step is four waves of products for both live lanes at once:
 //   W1  f*f beside the line's XX YY ZZ and g2_add(T, T)'s first wave
 //   W2  X*XX, YY*Z, XX*Z, Y*ZZ beside g2_add's second wave
@@ -1432,19 +1390,16 @@ LH_NI void miller_add_group(const Run& run, MillerShared& sh) {
                  });
 }
 
-// The pair ``pair`` (cell pair / 128, lane j = pair % 128) of the (64, m)
-// g1, (128, m) g2 and (1, m) mask planes: both lanes' Miller values (ONE
-// where the mask is 0), their product stored at column ``pair`` of the
-// (384, m/2) output.
-template <class Run>
-LH_FN void miller_fold_body(const Run& run, MillerShared& sh,
-                            const int32_t* g1, const int32_t* g2,
-                            const int32_t* mask, int32_t* out, long long m,
-                            long long pair) {
-  const long long base = pair / LH_LANES * 2 * LH_LANES + pair % LH_LANES;
+// The load phase of lanes a and b (sh.L[0], sh.L[1]) of the (64, m) g1
+// and (128, m) g2 planes: P, Q, T = Q, f = ONE, and the live-lane list
+// (lane q is live where live(q)).
+template <class Run, class Live>
+LH_FN void miller_pair_load(const Run& run, MillerShared& sh,
+                            const int32_t* g1, const int32_t* g2, long long m,
+                            long long a, long long b, Live live) {
   run([&](int tid) {
     LH_ITEMS(q, tid, 2) {
-      const long long lane = base + q * LH_LANES;
+      const long long lane = q ? b : a;
       MillerLane& L = sh.L[q];
       L.xP = load_fp(g1, m, lane, 0);
       L.yP = load_fp(g1, m, lane, 1);
@@ -1456,28 +1411,106 @@ LH_FN void miller_fold_body(const Run& run, MillerShared& sh,
     if (tid == 0) {
       sh.nl = 0;
       for (int q = 0; q < 2; ++q)
-        if (mask[base + q * LH_LANES] != 0) sh.live[sh.nl++] = q;
+        if (live(q)) sh.live[sh.nl++] = q;
     }
   });
-  if (sh.nl) {
+}
+
+// The live lanes' Miller loops: a doubling step per bit of |x| below its
+// top, an addition step per set bit, then the conjugation (x < 0).
+template <class Run>
+LH_FN void miller_pair_loop(const Run& run, MillerShared& sh) {
+  if (!sh.nl) return;
 #pragma unroll 1
-    for (int b = (int)KC.x_bits - 2; b >= 0; --b) {
-      miller_dbl_group(run, sh);
-      if (exp_bit(KC.xabs, (uint32_t)b)) miller_add_group(run, sh);
-    }
-    run([&](int tid) {    // conjugate: x < 0
-      LH_ITEMS(i, tid, 3 * sh.nl) {
-        Fp2& c = sh.L[sh.live[i / 3]].f.c[1].c[i % 3];
-        c = fp2_neg(c);
-      }
-    });
+  for (int b = (int)KC.x_bits - 2; b >= 0; --b) {
+    miller_dbl_group(run, sh);
+    if (exp_bit(KC.xabs, (uint32_t)b)) miller_add_group(run, sh);
   }
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 3 * sh.nl) {
+      Fp2& c = sh.L[sh.live[i / 3]].f.c[1].c[i % 3];
+      c = fp2_neg(c);
+    }
+  });
+}
+
+// The pair ``pair`` (cell pair / 128, lane j = pair % 128) of the (64, m)
+// g1, (128, m) g2 and (1, m) mask planes: both lanes' Miller values (ONE
+// where the mask is 0), their product stored at column ``pair`` of the
+// (384, m/2) output.
+template <class Run>
+LH_FN void miller_fold_body(const Run& run, MillerShared& sh,
+                            const int32_t* g1, const int32_t* g2,
+                            const int32_t* mask, int32_t* out, long long m,
+                            long long pair) {
+  const long long base = pair / LH_LANES * 2 * LH_LANES + pair % LH_LANES;
+  miller_pair_load(run, sh, g1, g2, m, base, base + LH_LANES,
+                   [&](int q) { return mask[base + q * LH_LANES] != 0; });
+  miller_pair_loop(run, sh);
   coop_wave(run, 54, [&](int i, Fp& a, Fp& b) {
     fp12_mul_opnd(sh.L[0].f, sh.L[1].f, i, a, b);
   }, [&](int i, const Fp& r) { sh.M[i] = r; });
   coop_fp12_post(run, sh.M, sh.V, sh.W, 1, 54,
                  [&](int, int h, int c, const Fp2& v) {
                    store_fp2(out, m / 2, pair, 2 * (3 * h + c), v);
+                 });
+}
+
+// The Miller loop alone: pair ``pair`` is lanes 2·pair and 2·pair + 1 of
+// the (64, m) g1 and (128, m) g2 planes (m even), both live; each lane's
+// conjugated Miller value stored at its own column of the (384, m)
+// output, one Fq block an item.
+template <class Run>
+LH_FN void miller_body(const Run& run, MillerShared& sh, const int32_t* g1,
+                       const int32_t* g2, int32_t* out, long long m,
+                       long long pair) {
+  miller_pair_load(run, sh, g1, g2, m, 2 * pair, 2 * pair + 1,
+                   [](int) { return true; });
+  miller_pair_loop(run, sh);
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 24)
+      store_fp(out, m, 2 * pair + i / 12, i % 12,
+               fp12_block(sh.L[i / 12].f, i % 12));
+  });
+}
+
+// ---------------------------------------------------------------------------
+// Lane products: one group per output lane of product_chunks
+// ---------------------------------------------------------------------------
+//
+// Output lane ``lane`` (chunk lane / 128, j = lane % 128) of the (384,
+// m/2) output is f_a · f_{a+128}, a = chunk · 256 + j, each operand ONE
+// where the mask is 0 (fp12_masked): a load phase of the 24 Fq blocks,
+// one wave of fp12_mul's 54 products, and its post phases storing the 12
+// blocks.  The group runs one product: latency, not issue, bounds it.
+
+struct PairShared {
+  Fp12 A[2];         // the operands
+  Fp M[54];
+  Fp2 V[18];
+  Fp6 W[3];
+};
+
+template <class Run>
+LH_FN void product_pair_body(const Run& run, PairShared& sh, const int32_t* f,
+                             const int32_t* mask, int32_t* out, long long m,
+                             long long lane) {
+  const long long a = lane / LH_LANES * 2 * LH_LANES + lane % LH_LANES;
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 24) {
+      const long long col = a + i / 12 * LH_LANES;
+      const int blk = i % 12;
+      fp12_block(sh.A[i / 12], blk) =
+          mask[col] != 0 ? load_fp(f, m, col, blk)
+                         : blk == 0 ? KC.ONE : fp_zero();
+    }
+  });
+  coop_wave(run, 54, [&](int i, Fp& x, Fp& y) {
+    fp12_mul_opnd(sh.A[0], sh.A[1], i, x, y);
+  }, [&](int i, const Fp& r) { sh.M[i] = r; });
+  coop_fp12_post(run, sh.M, sh.V, sh.W, 1, 54,
+                 [&](int, int h, int c, const Fp2& v) {
+                   store_fp2(out, m / 2, lane, 2 * (3 * h + c), v);
                  });
 }
 

@@ -4,7 +4,8 @@
 // group, several groups a block), under a runner that also stamps the SM
 // clock (clock64) after every barrier of one group (group 0 of block 0)
 // when given a stamp buffer; the sigma ladder (G = 16, 32 or 64, then the
-// port's butterfly) and prepare (G = 8, 16 or 32) at any launch shape; and
+// port's butterfly), prepare (G = 8, 16 or 32), product_chunks (G = 32 or
+// 64) and the Miller loop alone (G = 64 or 128) at any launch shape; and
 // the latency of one dependent Fq addition and subtraction.  The port
 // never calls this library.
 
@@ -95,6 +96,28 @@ lh_prepare_phases_kernel(const int32_t* pk, const int32_t* kmask,
   prepare_body(GroupRun<G>{(int)threadIdx.x % G, 0},
                reinterpret_cast<PrepShared*>(lh_group_smem)[gi], pk, kmask, lo,
                hi, out, flags, m, K, (long long)blockIdx.x * groups + gi);
+}
+
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX)
+lh_product_chunks_phases_kernel(const int32_t* f, const int32_t* mask,
+                                int32_t* out, long long m) {
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  product_pair_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+                    reinterpret_cast<PairShared*>(lh_group_smem)[gi], f, mask,
+                    out, m, (long long)blockIdx.x * groups + gi);
+}
+
+template <int G>
+__global__ void __launch_bounds__(LH_GROUP_BLOCK_MAX, 2)   // as the kernel
+lh_miller_phases_kernel(const int32_t* g1, const int32_t* g2, int32_t* out,
+                        long long m) {
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  miller_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+              reinterpret_cast<MillerShared*>(lh_group_smem)[gi], g1, g2, out,
+              m, (long long)blockIdx.x * groups + gi);
 }
 
 // One group per work item (n of them), ``groups`` a block of G threads.
@@ -202,6 +225,36 @@ int lh_prepare_phases(const int32_t* pk, const int32_t* kmask,
     case 8: return go(lh_prepare_phases_kernel<8>);
     case 16: return go(lh_prepare_phases_kernel<16>);
     case 32: return go(lh_prepare_phases_kernel<32>);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// product_chunks with groups of G threads (32 or 64), ``groups`` a block.
+int lh_product_chunks_phases(const int32_t* f, const int32_t* mask,
+                             int32_t* out, long long m, int G, int groups,
+                             void* stream) {
+  auto go = [&](auto kernel) {
+    return launch_shape<PairShared>(kernel, G, groups, m / 2, stream, f, mask,
+                                    out, m);
+  };
+  switch (G) {
+    case 32: return go(lh_product_chunks_phases_kernel<32>);
+    case 64: return go(lh_product_chunks_phases_kernel<64>);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The Miller loop alone with groups of G threads (64 or 128), ``groups`` a
+// block.
+int lh_miller_phases(const int32_t* g1, const int32_t* g2, int32_t* out,
+                     long long m, int G, int groups, void* stream) {
+  auto go = [&](auto kernel) {
+    return launch_shape<MillerShared>(kernel, G, groups, m / 2, stream, g1,
+                                      g2, out, m);
+  };
+  switch (G) {
+    case 64: return go(lh_miller_phases_kernel<64>);
+    case 128: return go(lh_miller_phases_kernel<128>);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Tuning probe for the thread-group kernels of the port on one NVIDIA
 GPU: ``lh_miller_fold_kernel``, ``lh_hash_g2_kernel``, the sigma ladder
-(``lh_sigma_ladder_kernel``) and ``lh_prepare_kernel``.
+(``lh_sigma_ladder_kernel``), ``lh_prepare_kernel``,
+``lh_product_chunks_kernel`` and ``lh_miller_kernel``.
 
     python3 probe_group_kernels.py
 
@@ -17,7 +18,10 @@ after every barrier of one group) and prints:
    lays them out; hash-to-G2 on 2 and 8 cells); likewise the sigma ladder
    at G = 16, 32, 64 (with the port's butterfly after it) at C = 2 and 8,
    and prepare at G = 8, 16, 32 at K = 16, C = 8 and on the block batch's
-   K = 512 (half the sets live) and K = 1 items;
+   K = 512 (half the sets live) and K = 1 items; product_chunks at G =
+   32, 64 on 768 and 256 input lanes (five calls queued behind a spin,
+   ``chip_smoke.queued_ms``: one call at a time would time its launch),
+   and the Miller loop alone at G = 64, 128 on 256 and 1024 lanes;
 2. the phase profile of one group at the port's launch shape: cycles of
    each phase of a Miller doubling and addition step (one live lane), and
    of the hash's ladders, (p²+7)/16 bits and point additions;
@@ -25,9 +29,12 @@ after every barrier of one group) and prints:
 
 Inputs are random field elements from a seed: the kernels' time does not
 depend on the values, only on which lanes are live.  The phase map in
-``phase_profile`` is the bodies' own phase sequence; a change to
-``miller_fold_body`` or ``hash_g2_body`` that it does not know fails its
-count check, and the map is then brought up to date with the body.
+``phase_profile`` is the bodies' own phase sequence (Miller+fold:
+``miller_pair_load``'s phase, ``miller_pair_loop``'s eight a doubling or
+addition step and the conjugation, the fold's four); a change to
+``miller_fold_body``, its pieces or ``hash_g2_body`` that it does not
+know fails its count check, and the map is then brought up to date with
+the body.
 ``chip_smoke.py`` does not run this script; a retune of either kernel
 does.
 """
@@ -38,8 +45,8 @@ import ctypes
 
 import numpy as np
 
-from chip_smoke import SEED, check, cuda_ms, fail, max_abs_err, rand_planes, \
-    smi
+from chip_smoke import SEED, check, cuda_ms, fail, max_abs_err, queued_ms, \
+    rand_planes, smi
 
 MILLER_SHAPES = ((32, 2), (32, 4), (64, 1), (64, 2), (64, 4), (128, 1),
                  (128, 2))
@@ -48,6 +55,8 @@ HASH_SHAPES = ((32, 1), (32, 2), (32, 4), (32, 8), (64, 1), (64, 2),
 SIGMA_SHAPES = ((16, 2), (16, 4), (32, 1), (32, 2), (32, 4), (64, 1),
                 (64, 2))
 PREP_SHAPES = ((8, 4), (8, 8), (16, 1), (16, 2), (16, 4), (32, 1), (32, 2))
+PCHUNK_SHAPES = ((32, 2), (32, 4), (64, 1), (64, 2), (64, 4))
+MILLER_ALONE_SHAPES = ((64, 1), (64, 2), (128, 1))
 STAMPS = 4096                 # LH_STAMPS of csrc/bls381_phases.cu
 
 
@@ -65,10 +74,11 @@ def miller_inputs(torch, rng, F, LF, S) -> list:
     return out
 
 
-def shape_rows(torch, card, name, note, shapes, port, at, outs) -> None:
+def shape_rows(torch, card, name, note, shapes, port, at, outs,
+               timer=cuda_ms) -> None:
     """One table row: port() (the port's kernel, a tuple of outputs)
     against at(G, groups) writing ``outs`` at each launch shape, raw
-    equal, and each timed."""
+    equal, and each timed by ``timer`` (five calls)."""
     want = port()
     times = {}
     for G, n in shapes:
@@ -78,10 +88,10 @@ def shape_rows(torch, card, name, note, shapes, port, at, outs) -> None:
         go()
         check(all(max_abs_err(torch, o, w) == 0 for o, w in zip(outs, want)),
               f"{name} at ({G}, {n}) != the port's kernel")
-        times[(G, n)] = cuda_ms(torch, go, 5)
+        times[(G, n)] = timer(torch, go, 5)
     print(f"{name} launch shapes (G, groups a block) at {note}, raw equal, "
-          f"ms: " + ", ".join(f"{c} {t:.3f}" for c, t in times.items())
-          + f"; the port's kernel {cuda_ms(torch, port, 5):.3f} [{card}]")
+          f"ms: " + ", ".join(f"{c} {t:.4f}" for c, t in times.items())
+          + f"; the port's kernel {timer(torch, port, 5):.4f} [{card}]")
 
 
 def shape_table(torch, card, lib, PK, HK, minputs, uinputs) -> None:
@@ -149,6 +159,38 @@ def ladder_shape_table(torch, card, lib, PK, rng, F, LF, S) -> None:
                    (out, flags))
 
 
+def fq12_shape_table(torch, card, lib, PK, rng, F, LF) -> None:
+    """product_chunks (every lane unmasked, as the verify path calls it;
+    timed with its calls queued behind a spin, as its launch is longer
+    than the kernel) and the Miller loop alone at each launch shape, raw
+    equal to the port's kernels and timed beside them, on random
+    planes."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for lanes in (768, 256):
+        f = rand_planes(torch, rng, F, LF, 12, lanes)
+        ones = torch.ones((1, lanes), dtype=torch.int32, device="cuda")
+        out = torch.empty((384, lanes // 2), dtype=torch.int32, device="cuda")
+        shape_rows(torch, card, "product_chunks",
+                   f"{lanes} -> {lanes // 2} lanes", PCHUNK_SHAPES,
+                   lambda f=f, ones=ones: (
+                       PK.product_chunks_kernel_call(f, ones),),
+                   lambda G, n, f=f, ones=ones, out=out, m=lanes:
+                       lib.lh_product_chunks_phases(
+                           f.data_ptr(), ones.data_ptr(), out.data_ptr(), m,
+                           G, n, stream), (out,), queued_ms)
+    for lanes in (256, 1024):
+        g1 = rand_planes(torch, rng, F, LF, 2, lanes)
+        g2 = rand_planes(torch, rng, F, LF, 4, lanes)
+        out = torch.empty((384, lanes), dtype=torch.int32, device="cuda")
+        shape_rows(torch, card, "miller", f"{lanes} lanes",
+                   MILLER_ALONE_SHAPES,
+                   lambda g1=g1, g2=g2: (PK.miller_kernel_call(g1, g2),),
+                   lambda G, n, g1=g1, g2=g2, out=out, m=lanes:
+                       lib.lh_miller_phases(g1.data_ptr(), g2.data_ptr(),
+                                            out.data_ptr(), m, G, n, stream),
+                   (out,))
+
+
 def phase_profile(torch, card, clk_hz, lib, PK, HK, g1, g2, mask, u) -> None:
     """Group 0's clock after every barrier, at the port's launch shape:
     Miller+fold on ``g1, g2, mask`` (pair 0 has one live lane), hash-to-G2
@@ -172,6 +214,8 @@ def phase_profile(torch, card, clk_hz, lib, PK, HK, g1, g2, mask, u) -> None:
         shape["G"], shape["groups"], b, stream),
         PK.miller_fold_kernel_call(g1, g2, mask))
     bits = [int(b) for b in PK.X_BITS_MILLER]
+    # miller_pair_load, miller_pair_loop (8 a step), then the conjugation
+    # and the fold's wave and three post phases
     check(len(d) == 1 + 8 * (len(bits) + sum(bits)) + 5,
           f"Miller+fold phase profile: {len(d)} phases")
     pos, dbl, add = 1, [], []
@@ -253,7 +297,9 @@ def main() -> None:
         "lh_hash_g2_phases": [P, P, LL, I, I, P, P],
         "lh_fp_add_chain": [P, P, I, I, P, P],
         "lh_sigma_phases": [P, P, P, P, P, LL, I, I, P],
-        "lh_prepare_phases": [P, P, P, P, P, P, LL, I, I, I, P]})
+        "lh_prepare_phases": [P, P, P, P, P, P, LL, I, I, I, P],
+        "lh_product_chunks_phases": [P, P, P, LL, I, I, P],
+        "lh_miller_phases": [P, P, P, LL, I, I, P]})
     consts = PK.cuda_consts()
     check(lib.lh_phases_init(consts.ctypes.data, consts.size) == 0,
           "constant upload failed")
@@ -264,6 +310,7 @@ def main() -> None:
     uinputs = [rand_planes(torch, rng, F, LF, 2, c * 2 * S) for c in (2, 8)]
     shape_table(torch, card, lib, PK, HK, minputs, uinputs)
     ladder_shape_table(torch, card, lib, PK, rng, F, LF, S)
+    fq12_shape_table(torch, card, lib, PK, rng, F, LF)
     phase_profile(torch, card, clk_hz, lib, PK, HK, *minputs[0][1:],
                   uinputs[0])
     add_latency(torch, card, lib, rand_planes(torch, rng, F, LF, 1, 2))

@@ -2,12 +2,13 @@
 against the plain versions.
 
 The CUDA header ``csrc/bls381_field.cuh`` compiles as plain C++: a small
-shim built with g++ runs ``miller_fold_body`` (one group per lane pair),
-``hash_g2_body`` (one group per message), ``sigma_ladder_body`` (one group
-per lane) with the sigma butterfly's cluster steps (``sigma_fold_step``,
-the cluster's blocks one after the other between its barriers) and
-``prepare_body`` (one group per set, sub-warp groups included) group by
-group, every phase for the threads of a group one after the other, and
+shim built with g++ runs ``miller_fold_body`` and ``miller_body`` (one
+group per lane pair), ``hash_g2_body`` (one group per message),
+``sigma_ladder_body`` (one group per lane) with the sigma butterfly's
+cluster steps (``sigma_fold_step``, the cluster's blocks one after the
+other between its barriers), ``prepare_body`` (one group per set, sub-warp
+groups included) and ``product_pair_body`` (one group per output lane)
+group by group, every phase for the threads of a group one after the other, and
 each must equal its plain version limb for limb at every group size its
 kernel may launch with.  The layer's rule is that no item of a phase
 reads what another item of that phase writes; the card runs a phase's
@@ -91,6 +92,23 @@ static void prepare_groups(const int32_t* pk, const int32_t* kmask,
   for (long long s = 0; s < m; ++s)
     prepare_body(run, *sh, pk, kmask, lo, hi, out, flags, m, K, s);
 }
+template <int G>
+static void product_groups(const int32_t* f, const int32_t* mask,
+                           int32_t* out, long long m, PairShared* sh,
+                           int order) {
+  const HostRun<G> run(order);
+  for (long long l = 0; l < m / 2; ++l)
+    product_pair_body(run, *sh, f, mask, out, m, l);
+}
+// The Miller loop alone on the n pairs given by index.
+template <int G>
+static void miller_alone_groups(const int32_t* g1, const int32_t* g2,
+                                int32_t* out, long long m,
+                                const long long* pairs, int n,
+                                MillerShared* sh, int order) {
+  const HostRun<G> run(order);
+  for (int k = 0; k < n; ++k) miller_body(run, *sh, g1, g2, out, m, pairs[k]);
+}
 extern "C" {
 int host_init(const uint32_t* words, int n) {
   if ((size_t)n * 4 != sizeof(BlsConsts)) return -2;
@@ -137,6 +155,25 @@ int host_sigma(const int32_t* sig, const int32_t* mask, const int32_t* lo,
   sigma_fold(out, m, fs, order);
   free(sh);
   free(fs);
+  return 0;
+}
+int host_product_chunks(const int32_t* f, const int32_t* mask, int32_t* out,
+                        long long m, int G, int order) {
+  PairShared* sh = (PairShared*)malloc(sizeof(PairShared));
+  if (!sh) return -1;
+  if (G == 32) product_groups<32>(f, mask, out, m, sh, order);
+  else product_groups<64>(f, mask, out, m, sh, order);
+  free(sh);
+  return 0;
+}
+int host_miller(const int32_t* g1, const int32_t* g2, int32_t* out,
+                long long m, const long long* pairs, int n, int G,
+                int order) {
+  MillerShared* sh = (MillerShared*)malloc(sizeof(MillerShared));
+  if (!sh) return -1;
+  if (G == 32) miller_alone_groups<32>(g1, g2, out, m, pairs, n, sh, order);
+  else miller_alone_groups<64>(g1, g2, out, m, pairs, n, sh, order);
+  free(sh);
   return 0;
 }
 int host_prepare(const int32_t* pk, const int32_t* kmask, const int32_t* lo,
@@ -198,6 +235,10 @@ def host_lib(tmp_path_factory):
                                ctypes.c_int]
     lib.host_prepare.argtypes = [P, P, P, P, P, P, ctypes.c_longlong,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.host_product_chunks.argtypes = [P, P, P, ctypes.c_longlong,
+                                        ctypes.c_int, ctypes.c_int]
+    lib.host_miller.argtypes = [P, P, P, ctypes.c_longlong, P, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int]
     consts = PK.cuda_consts()
     assert lib.host_init(consts.ctypes.data, consts.size) == 0
     return lib
@@ -411,3 +452,94 @@ def test_prepare_groups_on_host_match_plain(host_lib, prepare_chunk, G,
     for s_ in (77, 110, 119, 120):           # identity sums and dead sets
         assert flags[0, s_] == 1 and not out[:, s_].any()
     assert flags[0, 0] == 0 and flags[0, 5] == 0 and flags[0, 6] == 0
+
+
+def _rand_fq12_planes(rng, m: int) -> np.ndarray:
+    """(384, m) int32 blocks of random values below 2N: limbs 0..22
+    random, limb 23 below 2N >> 368 = 0x3402, limbs 24 and 25 zero."""
+    f = np.zeros((12, 32, m), np.int32)
+    f[:, :23] = rng.integers(0, 2 ** 16, (12, 23, m))
+    f[:, 23] = rng.integers(0, 0x3402, (12, m))
+    return f.reshape(384, m)
+
+
+@pytest.fixture(scope="module")
+def product_planes():
+    """512 lanes (two chunks) of random Fq12 values, with the mask all
+    ones and a random mask (about 30% of the lanes ONE), each with its
+    plain product_chunks."""
+    rng = np.random.default_rng(71)
+    f = _rand_fq12_planes(rng, 4 * S)
+    cases = {}
+    for name, mask in (("ones", np.ones((1, 4 * S), np.int32)),
+                       ("random mask", (rng.random((1, 4 * S)) < 0.7)
+                        .astype(np.int32))):
+        cases[name] = (f, mask,
+                       PK.product_chunks_plain(_t(f), _t(mask)).numpy())
+    return cases
+
+
+@pytest.mark.parametrize("order", sorted(ORDERS))
+@pytest.mark.parametrize("G", [32, 64])
+@pytest.mark.parametrize("case", ["ones", "random mask"])
+def test_product_pair_groups_on_host_match_plain(host_lib, product_planes, G,
+                                                 case, order):
+    """product_pair_body, one group of G threads per output lane, against
+    product_chunks_plain raw on 512 → 256 lanes, with the threads of each
+    phase in ``order``."""
+    f, mask, want = product_planes[case]
+    out = np.zeros((384, 2 * S), np.int32)
+    assert host_lib.host_product_chunks(f.ctypes.data, mask.ctypes.data,
+                                        out.ctypes.data, 4 * S, G,
+                                        ORDERS[order]) == 0
+    assert np.array_equal(out, want)
+
+
+# Pairs (lanes 2p, 2p + 1) the host runs of the 384-lane Miller planes:
+# one in each 128-lane block, a pair over zeros and the last pair.
+MILLER_PAIRS = (0, 65, 100, 128, 191)
+
+
+@pytest.fixture(scope="module")
+def miller_planes():
+    """384 lanes (three blocks) as ``miller_kernel_call`` takes them:
+    real points on lanes 0 and 1 (e(P, Q) and e(−P, Q)), 131, 256 and
+    383, zeros elsewhere; and the plain Miller values (its dedup runs the
+    zero lanes once)."""
+    rng = np.random.default_rng(72)
+    m = 3 * S
+    g1 = np.zeros((64, m), np.uint32)
+    g2 = np.zeros((128, m), np.uint32)
+    P1 = JC.g1_mul(JC.G1_GEN, int(rng.integers(1, 2 ** 62)))
+    Q1 = JC.g2_mul(JC.G2_GEN, int(rng.integers(1, 2 ** 62)))
+    lanes = [(0, P1, Q1), (1, JC.g1_neg(P1), Q1)]
+    for lane in (131, 256, 383):
+        lanes.append((lane, JC.g1_mul(JC.G1_GEN, int(rng.integers(1, 2 ** 62))),
+                      JC.g2_mul(JC.G2_GEN, int(rng.integers(1, 2 ** 62)))))
+    for lane, p, q in lanes:
+        g1[:, lane] = np.frombuffer(TB._g1_aff_col(p), np.uint32)
+        g2[:, lane] = np.frombuffer(TB._g2_aff_col(q), np.uint32)
+    g1, g2 = g1.view(np.int32), g2.view(np.int32)
+    return g1, g2, PK.miller_plain(_t(g1), _t(g2)).numpy()
+
+
+@pytest.mark.parametrize("order", sorted(ORDERS))
+@pytest.mark.parametrize("G", [32, 64])
+def test_miller_groups_on_host_match_plain(host_lib, miller_planes, G, order):
+    """miller_body, one group of G threads per lane pair (2p, 2p + 1),
+    against miller_plain raw on the pairs of MILLER_PAIRS of 384 lanes
+    (real points, a real point beside a zero lane, two zero lanes), with
+    the threads of each phase in ``order``; the columns of the other
+    pairs stay unwritten."""
+    g1, g2, want = miller_planes
+    m = g1.shape[1]
+    pairs = np.array(MILLER_PAIRS, np.int64)
+    out = np.zeros((384, m), np.int32)
+    assert host_lib.host_miller(g1.ctypes.data, g2.ctypes.data,
+                                out.ctypes.data, m, pairs.ctypes.data,
+                                len(pairs), G, ORDERS[order]) == 0
+    cols = np.concatenate([2 * pairs, 2 * pairs + 1])
+    assert np.array_equal(out[:, cols], want[:, cols])
+    rest = np.setdiff1d(np.arange(m), cols)
+    assert not out[:, rest].any()
+    assert not np.array_equal(want[:, 0], want[:, 200])     # real vs zero
