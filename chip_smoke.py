@@ -59,7 +59,8 @@ Phases, each of which fails the run with a non-zero exit:
    keys are P and −P and dead lanes; Miller at 256, 384 and 1024 lanes;
    product_chunks on 640 lanes padded with a ONE block (768) and on 512
    and 256 lanes (the path's three shapes), with and without a mask;
-   product at 512 lanes; finalize at 256 and 512 lanes;
+   product at 128, 256, 512 and 1024 lanes, with the mask all ones and
+   random; finalize at 256 and 512 lanes;
    and PR 2's kernels at this path's shapes: hash-to-G2 on 8 cells,
    sigma on C = 8, sigma_combine on its C = 8 partial and on an all-dead
    one, Miller+fold on the padded 1280-lane cell (1025 live).
@@ -90,7 +91,9 @@ Phases, each of which fails the run with a non-zero exit:
 The line before the last is one JSON object with each kernel's launches,
 error, time, plain-version time and bound (for every BLS kernel also its
 chain bound; the group kernels their launch shape, registers and stack;
-product_chunks and Miller their time at each shape phase 7 drives;
+product_chunks, Miller and product their time at each shape phase 7
+drives; product_chunks and product with their calls queued behind a spin
+(``queued_ms``) and one call at a time;
 Miller+fold, hash-to-G2 and sigma take ``ms`` at the shared path's
 shapes and add ``ms_general`` and its bounds at the general path's,
 prepare adds ``ms_block`` and its chain bounds on the block batch's two
@@ -852,9 +855,11 @@ def group_configs(torch, PK, hw: dict) -> dict:
     prepare on the block batch's 256 sets and BASELINE row 1's 1024, per
     output lane for product_chunks on the general path's 256, 512 and 768
     input lanes; the sigma butterfly one block of a cluster per 16
-    lanes), their dynamic shared memory and what ptxas gave them.  At the
-    general path's largest sizes every SM gets a block, and the butterfly
-    a cluster per chunk (64 blocks at C = 8)."""
+    lanes; the product butterfly a block per residue class, a group per K
+    lanes of it, at 256, 512 and 1024 lanes), their dynamic shared memory
+    and what ptxas gave them.  At the general path's largest sizes every
+    SM gets a block, the sigma butterfly a cluster per chunk (64 blocks at
+    C = 8), and the product butterfly one block per class (128)."""
     out = {}
     for which, sizes in (("miller_fold", (256, 1280)),
                          ("hash_g2", (2 * 256, 8 * 256)),
@@ -862,21 +867,31 @@ def group_configs(torch, PK, hw: dict) -> dict:
                          ("sigma_fold", (2 * 128, 8 * 128)),
                          ("prepare", (2 * 128, GEN_SETS)),
                          ("product_chunks", (256, 512, 768)),
-                         ("miller", (256, GEN_SETS))):
+                         ("miller", (256, GEN_SETS)),
+                         ("product", (256, 512, 1024))):
         info = PK.group_kernel_info(which)
-        blocks = [n // info["lanes_per_group"] // info["groups"]
-                  for n in sizes]
+        if which == "product":    # a block a class, R / K groups (capped)
+            R = [n // PK.LANE_BLOCK for n in sizes]
+            groups = [min(r // min(info["lanes_per_group"], r),
+                          info["groups"]) for r in R]
+            blocks = [PK.LANE_BLOCK] * len(sizes)
+            smem = [2 * r * 12 * 13 * 4    # the class's lanes twice, Fq12
+                    + g * info["shared_bytes_per_group"]
+                    for r, g in zip(R, groups)]
+        else:
+            groups = info["groups"]
+            blocks = [n // info["lanes_per_group"] // groups for n in sizes]
+            smem = groups * info["shared_bytes_per_group"]
         out[which] = {**info, "blocks": blocks,
-                      "shared_bytes_per_block":
-                          info["groups"] * info["shared_bytes_per_group"]}
-        print(f"{which}: {info['G']} threads a group, {info['groups']} "
+                      "shared_bytes_per_block": smem}
+        print(f"{which}: {info['G']} threads a group, {groups} "
               f"groups a block, {info['cluster']} blocks a cluster, blocks "
-              f"{blocks} at {sizes} lanes, "
-              f"{out[which]['shared_bytes_per_block']} B shared memory a "
+              f"{blocks} at {sizes} lanes, {smem} B shared memory a "
               f"block, {info['registers']} registers and "
               f"{info['local_bytes']} B stack a thread [{hw['card']}]")
-        least = sizes[-1] // PK.LANE_BLOCK * info["cluster"] \
-            if which == "sigma_fold" else hw["sms"]
+        least = (sizes[-1] // PK.LANE_BLOCK * info["cluster"]
+                 if which == "sigma_fold" else PK.LANE_BLOCK
+                 if which == "product" else hw["sms"])
         check(blocks[-1] >= least, f"{which} launches {blocks[-1]} blocks "
                                    f"(want {least}) on {hw['sms']} SMs")
     return out
@@ -1383,8 +1398,10 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     kmask_d, lo_d, hi_d = dev32(kmask), dev32(lo), dev32(hi)
     errs, timing = {}, {}
 
-    def record(name, kern, plain, products, nbytes, shape, chain=None):
-        k_ms = cuda_ms(torch, kern, BLS_TIMED_RUNS)
+    def record(name, kern, plain, products, nbytes, shape, chain=None,
+               k_ms=None):
+        if k_ms is None:
+            k_ms = cuda_ms(torch, kern, BLS_TIMED_RUNS)
         p_ms = cuda_ms(torch, plain, 1)
         t = {"ms": k_ms, "plain_ms": p_ms, "bytes": nbytes,
              **bounds(hw, products, nbytes, chain)}
@@ -1581,26 +1598,53 @@ def phase_general_kernels(torch, hw: dict, sets, rand_fn) -> dict:
            lambda: PK.product_chunks_plain(f768, ones),
            plain_products(PK, lambda: PK.product_chunks_plain(f768, ones)),
            4 * (384 * 768 + 768 + 384 * 384), "768 -> 384 lanes",
-           chain=chain_products(PK, "product_chunks"))
-    timing["product_chunks"].update(ms=pc_ms[768], ms_paced=pc_paced[768],
+           chain=chain_products(PK, "product_chunks"), k_ms=pc_ms[768])
+    timing["product_chunks"].update(ms_paced=pc_paced[768],
                                     ms_by_lanes=pc_ms)
 
-    # product at 512 lanes with a mask
+    # product on the path's Miller values at 128 ... 1024 lanes, the mask
+    # all ones and random, each timed; 512 lanes with the random mask is
+    # the recorded shape
+    check(f.shape[1] == 1024, f"Miller values on {f.shape[1]} lanes")
+    rm1024 = dev32((rng.random((1, 1024)) < 0.8).astype(np.int32))
+    err, pr_ms, pr_paced = 0, {}, {}
+    for lanes in (128, 256, 512, 1024):
+        fl = f[:, :lanes].contiguous()
+        ml = rm1024[:, :lanes].contiguous()
+        for mk in (torch.ones_like(ml), ml):
+            err = max(err, max_abs_err(torch, PK.product_kernel_call(fl, mk),
+                                       PK.product_plain(fl, mk)))
+        pr_paced[lanes] = cuda_ms(torch, lambda fl=fl, ml=ml:
+                                  PK.product_kernel_call(fl, ml),
+                                  BLS_TIMED_RUNS)
+        pr_ms[lanes] = queued_ms(torch, lambda fl=fl, ml=ml:
+                                 PK.product_kernel_call(fl, ml),
+                                 BLS_TIMED_RUNS)
+    errs["product"] = err
+    check(err == 0, "product kernel != plain (raw limbs)")
+    print(f"product ms by lanes (random mask), {BLS_TIMED_RUNS} calls queued "
+          f"behind a spin (device time a call): "
+          f"{ {k: round(v, 4) for k, v in pr_ms.items()} }; one call at a "
+          f"time (median of {BLS_TIMED_RUNS}, the host's launch included): "
+          f"{ {k: round(v, 4) for k, v in pr_paced.items()} } [{hw['card']}]")
     f512 = f[:, :512].contiguous()
-    m512 = dev32((rng.random((1, 512)) < 0.8).astype(np.int32))
+    m512 = rm1024[:, :512].contiguous()
     pr = PK.product_kernel_call(f512, m512)
-    errs["product"] = max_abs_err(torch, pr, PK.product_plain(f512, m512))
-    check(errs["product"] == 0, "product kernel != plain (raw limbs)")
     want = F.FQ12_ONE
     for r in range(4):
         if int(m512[0, 128 * r + 7]):
             want = F.fq12_mul(want, lane_fq12(f512, 128 * r + 7))
     check(lane_fq12(pr, 7) == want, "product lane 7 != the host product")
+    # the kernel's products: 54 a lane at each of the log2(M/128) levels
+    levels = chain_products(PK, "product", M=512)
+    products = 54 * 512 * levels
+    check(products == plain_products(PK, lambda: PK.product_plain(f512, m512)),
+          "the product kernel's Montgomery products != the plain version's")
     record("product", lambda: PK.product_kernel_call(f512, m512),
-           lambda: PK.product_plain(f512, m512),
-           plain_products(PK, lambda: PK.product_plain(f512, m512)),
-           4 * (384 * 512 * 2 + 512), "512 lanes",
-           chain=chain_products(PK, "product", M=512))
+           lambda: PK.product_plain(f512, m512), products,
+           4 * (384 * 512 * 2 + 512), "512 lanes", chain=levels,
+           k_ms=pr_ms[512])
+    timing["product"].update(ms_paced=pr_paced[512], ms_by_lanes=pr_ms)
 
     # finalize at 256 and 512 lanes: a product of 1 (the path's valid
     # product beside ONE blocks) and one that is not 1
@@ -2111,7 +2155,7 @@ def main() -> None:
     for name in ("prepare", "product_chunks", "miller", "product"):
         row(name, "bls381.cu", launches[name], general_errs[name],
             gk["timing"][name])
-        if name in ("product_chunks", "miller"):
+        if name in ("product_chunks", "miller", "product"):
             t = gk["timing"][name]
             kernels[-1].update(**{k: t[k] for k in ("ms_by_lanes", "ms_paced")
                                   if k in t},

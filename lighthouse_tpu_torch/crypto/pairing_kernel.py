@@ -27,7 +27,9 @@ core in ``csrc/bls381_field.cuh``, built at first use by
   One thread group per output lane runs the Fq12 product's 54 Montgomery
   products as one wave;
 - :func:`product_kernel_call` — the masked roll butterfly down to the 128
-  residue-class products (replaces ``_product_kernel``);
+  residue-class products (replaces ``_product_kernel``).  A block per
+  residue class holds the class's lanes in shared memory; each level is
+  one wave of its Fq12 products, a thread group per lane;
 - :func:`finalize_kernel_call` — ``product_chunks`` down to 128 lanes,
   then the 128 → 1 Fq12 fold, the easy and hard parts of the cubed final
   exponentiation and ``== 1`` (replaces ``_finalize_easy_kernel`` +
@@ -976,18 +978,19 @@ def _pow2_lanes(n: int) -> bool:
 def product_kernel_call(f_planes, mask):
     """f (384, M), mask (1, M) int32, M a power of two ≥ 128 → (384, M):
     lane j holds the product of the masked lanes ≡ j (mod 128), by the
-    reference's roll butterfly (w = M/2 … 128)."""
+    reference's roll butterfly (w = M/2 … 128).  On the card M is at most
+    16384: a block holds its class's M/128 lanes twice in shared memory
+    (``LH_PRODUCT_R_MAX``), and the launch refuses larger planes."""
     m = _check_product_args(f_planes, mask, _pow2_lanes,
                             "a power of two ≥ 128")
     if f_planes.device.type == "cpu":
         return product_plain(f_planes, mask)
     _require_cuda(f_planes)
-    dev = f_planes.device
-    out = torch.empty((FQ12_ROWS, m), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2 * m, 12 * 13), dtype=torch.int32, device=dev)
+    out = torch.empty((FQ12_ROWS, m), dtype=torch.int32,
+                      device=f_planes.device)
     _check_rc(kernel_library().lh_product(
-        _ptr(f_planes), _ptr(mask), scratch.data_ptr(), out.data_ptr(), m,
-        _stream(f_planes)), "product")
+        _ptr(f_planes), _ptr(mask), out.data_ptr(), m, _stream(f_planes)),
+        "product")
     LAUNCHES["product"] += 1
     return out
 
@@ -1103,8 +1106,8 @@ _SIGNATURES = {
     "lh_product_chunks": [_P, _P, _P, _LL, _P],
     # g1, g2, out, lanes, stream
     "lh_miller": [_P, _P, _P, _LL, _P],
-    # f, mask, scratch, out, lanes, stream
-    "lh_product": [_P, _P, _P, _P, _LL, _P],
+    # f, mask, out, lanes, stream
+    "lh_product": [_P, _P, _P, _LL, _P],
     # a, b, out, lanes, stream
     "lh_fp_mul": [_P, _P, _P, _LL, _P],
     # xy, out, chain length, stream
@@ -1178,7 +1181,7 @@ def kernel_library() -> ctypes.CDLL:
 # hash-to-G2, the sigma ladder, prepare, the sigma butterfly (whose group
 # is one block of its cluster), product_chunks and the Miller loop alone.
 GROUP_KERNELS = ("miller_fold", "hash_g2", "sigma", "prepare", "sigma_fold",
-                 "product_chunks", "miller")
+                 "product_chunks", "miller", "product")
 
 
 def group_kernel_info(which: str) -> dict:

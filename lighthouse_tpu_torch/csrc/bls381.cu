@@ -30,9 +30,8 @@
 // counted once, times the latency of one dependent product) is the larger.
 // The reference's formulas run in the reference's order in every design.
 //
-// The product butterfly runs 128 threads, one per residue class mod 128
-// (ladders rolled, tower functions __noinline__); sigma_combine runs each
-// partial's chain (about 600-900 products) on one thread.
+// sigma_combine runs each partial's chain (about 600-900 products) on one
+// thread (ladders rolled, tower functions __noinline__).
 //
 // Thread groups sharing each tower step (the cooperative phases of
 // bls381_field.cuh): each step's independent Montgomery products run as one
@@ -43,7 +42,9 @@
 // prepare and product_chunks run one small group per lane pair, message,
 // lane, set or output lane (LH_*_G threads; several groups a block, enough
 // blocks for every SM at the general path's sizes), so their many
-// independent chains fill the card and each chain is a few hundred waves:
+// independent chains fill the card and each chain is a few hundred waves;
+// the product butterfly runs a block per residue class mod 128, a group
+// per lane of the class:
 //   lh_miller_fold_kernel replaces _miller_fold_kernel (pairing_kernel.py
 //     :893, pallas_call :938).  Rate bound at 1280 lanes (1025 live) 1.02
 //     ms; chain bound 268 products (four waves a doubling step, three an
@@ -53,6 +54,13 @@
 //     pallas_call :781): Miller+fold's load phase and loop on lanes 2p and
 //     2p + 1 (every lane live), both values stored.  Rate bound at 1024
 //     lanes 1.02 ms; chain bound 267 products (about 0.40 ms).
+//   lh_product_kernel replaces _product_kernel (pairing_kernel.py :811,
+//     pallas_call :843): 128 blocks, class t's R = M/128 lanes in shared
+//     memory, each butterfly level one wave of 54 products a lane (a
+//     64-thread group a lane) and the block's barrier.  Rate bound 54 M
+//     log2(R) products (0.0049 ms at 512 lanes); chain bound log2(R)
+//     dependent products (2 at 512 lanes, about 0.003 ms): like
+//     product_chunks, the loads, waves, post phases and launch set its time.
 //   lh_product_chunks_kernel replaces _product_chunk_kernel
 //     (pairing_kernel.py :853, pallas_call :877): one Fq12 product a
 //     group, its 54 Montgomery products as one wave.  Its rate bound (54
@@ -236,14 +244,16 @@ lh_miller_kernel(const int32_t* __restrict__ g1,
               m, (long long)blockIdx.x * groups + gi);
 }
 
-// --- product: the roll butterfly, a thread per residue class mod 128 ---------
-// A class never reads another (every roll is a multiple of 128 lanes), so
-// the 128 threads run their classes alone through M-lane global scratch.
-__global__ void __launch_bounds__(LANE_BLOCK)
+// --- product: the roll butterfly, a block per residue class mod 128 ---------
+// product_class_body (bls381_field.cuh): the class's lanes in shared
+// memory, double-buffered; each level one wave of the Fq12 products over
+// groups of G threads (K lanes a group's wave), then the block's barrier.
+template <int G, int K>
+__global__ void __launch_bounds__(LH_PRODUCT_GROUPS_MAX * G)
 lh_product_kernel(const int32_t* __restrict__ f,
-                  const int32_t* __restrict__ mask, Fp12* a, Fp12* b,
-                  int32_t* __restrict__ out, long long m) {
-  product_class(f, mask, a, b, out, m, threadIdx.x);
+                  const int32_t* __restrict__ mask, int32_t* out,
+                  long long m) {
+  product_classes<G, K>(f, mask, out, m);
 }
 
 // --- probe: one Montgomery product per lane ----------------------------------
@@ -326,12 +336,13 @@ int lh_miller_fold(const int32_t* g1, const int32_t* g2, const int32_t* mask,
 
 // A group kernel's launch shape (which: 0 Miller+fold, 1 hash-to-G2, 2 the
 // sigma ladder, 3 prepare, 4 the sigma butterfly, whose group is its block
-// of a cluster, 5 product_chunks, 6 the Miller loop alone) and what ptxas
-// gave it: info = {threads a group, groups a block, shared bytes a group,
-// registers a thread, local (stack) bytes a thread, input lanes a group,
-// blocks a cluster}.
+// of a cluster, 5 product_chunks, 6 the Miller loop alone, 7 the product
+// butterfly, whose groups a block is its most: R/K at M = 128R) and what
+// ptxas gave it: info = {threads a group, groups a block, shared bytes a
+// group, registers a thread, local (stack) bytes a thread, input lanes a
+// group, blocks a cluster}.
 int lh_group_kernel_info(int which, int* info) {
-  static const int shape[7][5] = {
+  static const int shape[8][5] = {
       {LH_MILLER_G, LH_MILLER_GROUPS, (int)sizeof(MillerShared), 2, 1},
       {LH_HASH_G, LH_HASH_GROUPS, (int)sizeof(HashShared), 2, 1},
       {LH_SIGMA_G, LH_SIGMA_GROUPS, (int)sizeof(SigmaLane), 1, 1},
@@ -339,8 +350,10 @@ int lh_group_kernel_info(int which, int* info) {
       {LH_SIGMA_FOLD_THREADS, 1, (int)sizeof(SigmaFoldShared),
        LH_SIGMA_FOLD_LANES, LH_SIGMA_CLUSTER},
       {LH_PCHUNK_G, LH_PCHUNK_GROUPS, (int)sizeof(PairShared), 2, 1},
-      {LH_MLOOP_G, LH_MLOOP_GROUPS, (int)sizeof(MillerShared), 2, 1}};
-  if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
+      {LH_MLOOP_G, LH_MLOOP_GROUPS, (int)sizeof(MillerShared), 2, 1},
+      {LH_PRODUCT_G, LH_PRODUCT_GROUPS_MAX,
+       (int)sizeof(ProductWave<LH_PRODUCT_LANES>), LH_PRODUCT_LANES, 1}};
+  if (which < 0 || which > 7) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e =
       which == 0   ? cudaFuncGetAttributes(&a, lh_miller_fold_kernel<LH_MILLER_G>)
@@ -349,7 +362,9 @@ int lh_group_kernel_info(int which, int* info) {
       : which == 3 ? cudaFuncGetAttributes(&a, lh_prepare_kernel<LH_PREP_G>)
       : which == 4 ? cudaFuncGetAttributes(&a, lh_sigma_fold_kernel)
       : which == 5 ? cudaFuncGetAttributes(&a, lh_product_chunks_kernel<LH_PCHUNK_G>)
-                   : cudaFuncGetAttributes(&a, lh_miller_kernel<LH_MLOOP_G>);
+      : which == 6 ? cudaFuncGetAttributes(&a, lh_miller_kernel<LH_MLOOP_G>)
+      : cudaFuncGetAttributes(
+            &a, lh_product_kernel<LH_PRODUCT_G, LH_PRODUCT_LANES>);
   if (e != cudaSuccess) return (int)e;
   for (int i = 0; i < 3; ++i) info[i] = shape[which][i];
   info[3] = a.numRegs;
@@ -398,12 +413,11 @@ int lh_miller(const int32_t* g1, const int32_t* g2, int32_t* out, long long m,
       g1, g2, out, m);
 }
 
-int lh_product(const int32_t* f, const int32_t* mask, int32_t* scratch,
-               int32_t* out, long long m, void* stream) {
-  Fp12* a = reinterpret_cast<Fp12*>(scratch);
-  lh_product_kernel<<<1, LANE_BLOCK, 0, (cudaStream_t)stream>>>(
-      f, mask, a, a + m, out, m);
-  return (int)cudaGetLastError();
+int lh_product(const int32_t* f, const int32_t* mask, int32_t* out,
+               long long m, void* stream) {
+  return launch_product<LH_PRODUCT_G, LH_PRODUCT_LANES>(
+      lh_product_kernel<LH_PRODUCT_G, LH_PRODUCT_LANES>, f, mask, out, m,
+      stream);
 }
 
 int lh_fp_mul_chain(const int32_t* xy, int32_t* out, int n, void* stream) {

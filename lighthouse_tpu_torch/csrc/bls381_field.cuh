@@ -336,30 +336,6 @@ LH_FN Fp6 fp6_mul_by_v(const Fp6& a) {
   return {{fp2_mul_by_xi(a.c[2]), a.c[0], a.c[1]}};
 }
 
-LH_NI Fp6 fp6_mul(const Fp6& a, const Fp6& b) {
-  Fp2 v0 = fp2_mul(a.c[0], b.c[0]);
-  Fp2 v1 = fp2_mul(a.c[1], b.c[1]);
-  Fp2 v2 = fp2_mul(a.c[2], b.c[2]);
-  Fp2 v01 = fp2_mul(fp2_add(a.c[0], a.c[1]), fp2_add(b.c[0], b.c[1]));
-  Fp2 v12 = fp2_mul(fp2_add(a.c[1], a.c[2]), fp2_add(b.c[1], b.c[2]));
-  Fp2 v02 = fp2_mul(fp2_add(a.c[0], a.c[2]), fp2_add(b.c[0], b.c[2]));
-  Fp6 r;
-  r.c[0] = fp2_add(v0, fp2_mul_by_xi(fp2_sub(v12, fp2_add(v1, v2))));
-  r.c[1] = fp2_add(fp2_sub(v01, fp2_add(v0, v1)), fp2_mul_by_xi(v2));
-  r.c[2] = fp2_add(fp2_sub(v02, fp2_add(v0, v2)), v1);
-  return r;
-}
-
-LH_NI Fp12 fp12_mul(const Fp12& a, const Fp12& b) {
-  Fp6 v00 = fp6_mul(a.c[0], b.c[0]);
-  Fp6 v11 = fp6_mul(a.c[1], b.c[1]);
-  Fp6 vxx = fp6_mul(fp6_add(a.c[0], a.c[1]), fp6_add(b.c[0], b.c[1]));
-  Fp12 r;
-  r.c[0] = fp6_add(v00, fp6_mul_by_v(v11));
-  r.c[1] = fp6_sub(vxx, fp6_add(v00, v11));
-  return r;
-}
-
 LH_FN Fp12 fp12_one() {
   Fp12 r;
 #pragma unroll
@@ -482,25 +458,6 @@ LH_FN void store_fp2(int32_t* base, long long M, long long lane, int blk,
   store_fp(base, M, lane, blk + 1, a.c1);
 }
 
-LH_FN Fp12 load_fp12(const int32_t* base, long long M, long long lane) {
-  Fp12 r;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      r.c[i].c[j] = load_fp2(base, M, lane, 2 * (i * 3 + j));
-  return r;
-}
-
-LH_FN void store_fp12(int32_t* base, long long M, long long lane,
-                      const Fp12& a) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      store_fp2(base, M, lane, 2 * (i * 3 + j), a.c[i].c[j]);
-}
-
 // ---------------------------------------------------------------------------
 // Per-lane pieces of the kernels
 // ---------------------------------------------------------------------------
@@ -517,39 +474,6 @@ LH_FN Fp12 line_fp12(const Fp2& A, const Fp2& B, const Fp2& C) {
   l.c[0].c[1] = B;
   l.c[1].c[1] = C;
   return l;
-}
-
-// --- the general batch verify -----------------------------------------------
-
-// Lane ``lane`` of an Fq12 plane, or 1 where the mask is 0.
-LH_FN Fp12 fp12_masked(const int32_t* f, const int32_t* mask, long long m,
-                       long long lane) {
-  return mask[lane] != 0 ? load_fp12(f, m, lane) : fp12_one();
-}
-
-// The roll butterfly over residue class t of an M-lane plane: lanes t +
-// 128r, r < R = M/128.  Step w = 128v (v = R/2 ... 1) multiplies lane j by
-// lane (j + w) mod M, every lane from the previous step's values, so a
-// class never reads another class.  ``a`` and ``b`` are M-lane scratch.
-LH_FN void product_class(const int32_t* f, const int32_t* mask, Fp12* a,
-                         Fp12* b, int32_t* out, long long m, int t) {
-  const long long R = m / LH_LANES;
-#pragma unroll 1
-  for (long long r = 0; r < R; ++r)
-    a[r * LH_LANES + t] = fp12_masked(f, mask, m, r * LH_LANES + t);
-#pragma unroll 1
-  for (long long v = R / 2; v >= 1; v >>= 1) {
-#pragma unroll 1
-    for (long long r = 0; r < R; ++r)
-      b[r * LH_LANES + t] = fp12_mul(a[r * LH_LANES + t],
-                                     a[((r + v) & (R - 1)) * LH_LANES + t]);
-    Fp12* tmp = a;
-    a = b;
-    b = tmp;
-  }
-#pragma unroll 1
-  for (long long r = 0; r < R; ++r)
-    store_fp12(out, m, r * LH_LANES + t, a[r * LH_LANES + t]);
 }
 
 // --- sigma_combine ----------------------------------------------------------
@@ -597,10 +521,10 @@ LH_FN int sigma_combine_lane(const int32_t* part, long long m, int C,
 // C loops, the same bits as the card's PTX chains).  An item never reads
 // what another item of its phase writes; a host build run in every order
 // checks that.
-// Each item computes its value with the serial formulas above (fp2_mul,
-// fp6_mul, fp12_mul, fp2_inv, g2_add, the G1 law of g1_add_opnd1 ...) on
-// the same operands in the same order, so every value is the serial one
-// limb for limb.  A
+// Each item computes its value with the serial formulas (fp2_mul, fp2_inv,
+// g2_add above, the Karatsuba Fq6 and Fq12 products of fp6_post and
+// fp12_post, the G1 law of g1_add_opnd1 ...) on the same operands in the
+// same order, so every value is the serial one limb for limb.  A
 // dependent chain of tower steps then costs one wave of products per step
 // (plus its additions and barriers), not the step's products in a row.
 // Finalize runs one group of LH_COOP_THREADS (the block); Miller+fold, the
@@ -690,10 +614,11 @@ LH_FN Fp2 kara_post(const Fp* m) {
   return {fp_sub(m[0], m[1]), fp_sub(m[2], fp_add(m[0], m[1]))};
 }
 
-// Coefficient c of fp6_mul's value from its six Fq2 products v0 v1 v2 v01
-// v12 v02, and coefficient (h, c) of fp12_mul's value from its three Fq6
-// products v00 v11 vxx: the serial formulas as one code path with selects
-// (a - b is a + (-b) bit for bit: fp_sub adds 2N - b as fp_neg makes it).
+// Coefficient c of an Fq6 product's value from its six Fq2 products v0 v1
+// v2 v01 v12 v02, and coefficient (h, c) of an Fq12 product's value from
+// its three Fq6 products v00 v11 vxx: the serial formulas as one code path
+// with selects (a - b is a + (-b) bit for bit: fp_sub adds 2N - b as
+// fp_neg makes it).
 //   c0 = v0 + xi(v12 - (v1 + v2)), c1 = (v01 - (v0 + v1)) + xi(v2),
 //   c2 = (v02 - (v0 + v2)) + v1;
 //   (v00 + v v11).c = v00.c + (c ? v11.c[c-1] : xi(v11.c2)),
@@ -711,9 +636,9 @@ LH_FN Fp2 fp12_post(const Fp6* v, int h, int c) {
                  h ? fp2_neg(sum) : c ? v[1].c[c - 1] : xs);
 }
 
-// Component k of Fq2 coefficient i of fp12_mul's Fq6 operand h (a0, a1,
-// a0 + a1), and of fp6_mul's Fq2 operand j on it (c0, c1, c2, c0 + c1,
-// c1 + c2, c0 + c2).
+// Component k of Fq2 coefficient i of an Fq12 product's Fq6 operand h (a0,
+// a1, a0 + a1), and of the Fq6 product's Fq2 operand j on it (c0, c1, c2,
+// c0 + c1, c1 + c2, c0 + c2).
 LH_FN Fp fp12_opnd6(const Fp12& a, int h, int i, int k) {
   const Fp& u = k ? a.c[0].c[i].c1 : a.c[0].c[i].c0;
   const Fp& v = k ? a.c[1].c[i].c1 : a.c[1].c[i].c0;
@@ -729,7 +654,7 @@ LH_FN Fp fp12_opnd(const Fp12& a, int h, int j, int t) {
   return t < 2 ? fp12_opnd2(a, h, j, t)
                : fp_add(fp12_opnd2(a, h, j, 0), fp12_opnd2(a, h, j, 1));
 }
-// Operands of Montgomery product r < 54 of fp12_mul(a, b): Fq6 product
+// Operands of Montgomery product r < 54 of the Fq12 product a b: Fq6 product
 // r / 18, its Fq2 product r % 18 / 3, Karatsuba product r % 3.  Each item
 // recomputes the serial pre-additions it needs; a square (a and b one
 // object) computes its operand once.
@@ -942,6 +867,17 @@ LH_FN void coop_fp12_post(const Run& run, const Fp* M, Fp2* V, Fp6* W, int n,
   });
 }
 
+// n Fq12 products side by side: ONE wave of their 54n Montgomery products
+// (item i's operands from opnd(i, x, y), fp12_mul_opnd of product i / 54;
+// product q's 54 at M + 54q), then coop_fp12_post handing coefficient (h,
+// c) of product q to out(q, h, c, value).
+template <class Run, class Opnd, class Out>
+LH_FN void coop_fp12_muls(const Run& run, Fp* M, Fp2* V, Fp6* W, int n,
+                          Opnd opnd, Out out) {
+  coop_wave(run, 54 * n, opnd, [&](int i, const Fp& r) { M[i] = r; });
+  coop_fp12_post(run, M, V, W, n, 54, out);
+}
+
 // Scratch of one step: up to LH_COOP_BATCH Fq12 products, i.e. three times
 // as many Fq6 products, 18 times as many Fq2 and 54 times as many Fq ones,
 // and the temporaries of the Fq6 inversion.
@@ -979,7 +915,7 @@ LH_NI void coop_fp2_mul(const Run& run, CoopBuf& s, int n) {
   });
 }
 
-// W6[k] <- A6[k] * B6[k], k < n (fp6_mul: v0 v1 v2 v01 v12 v02).
+// W6[k] <- A6[k] * B6[k], k < n (Karatsuba: v0 v1 v2 v01 v12 v02).
 template <class Run>
 LH_NI void coop_fp6_mul(const Run& run, CoopBuf& s, int n) {
   run([&](int tid) {
@@ -998,7 +934,7 @@ LH_NI void coop_fp6_mul(const Run& run, CoopBuf& s, int n) {
   });
 }
 
-// d[k] <- a[k] * b[k], k < n <= LH_COOP_BATCH (fp12_mul); d may be a or b.
+// d[k] <- a[k] * b[k], k < n <= LH_COOP_BATCH (Karatsuba); d may be a or b.
 template <class Run>
 LH_NI void coop_fp12_mul(const Run& run, CoopBuf& s, Fp12* d, const Fp12* a,
                          const Fp12* b, int n) {
@@ -1475,14 +1411,24 @@ LH_FN void miller_body(const Run& run, MillerShared& sh, const int32_t* g1,
 }
 
 // ---------------------------------------------------------------------------
-// Lane products: one group per output lane of product_chunks
+// Lane products: product_chunks and the roll butterfly
 // ---------------------------------------------------------------------------
 //
-// Output lane ``lane`` (chunk lane / 128, j = lane % 128) of the (384,
-// m/2) output is f_a · f_{a+128}, a = chunk · 256 + j, each operand ONE
-// where the mask is 0 (fp12_masked): a load phase of the 24 Fq blocks,
-// one wave of fp12_mul's 54 products, and its post phases storing the 12
-// blocks.  The group runs one product: latency, not issue, bounds it.
+// Output lane ``lane`` (chunk lane / 128, j = lane % 128) of
+// product_chunks' (384, m/2) output is f_a · f_{a+128}, a = chunk · 256 +
+// j, each operand ONE where the mask is 0 (masked_block): a load phase of
+// the 24 Fq blocks, one wave of the Fq12 product's 54 Montgomery products,
+// and its post phases storing the 12 blocks (coop_fp12_muls), one group
+// per output lane.  The group runs one product: latency, not issue, bounds
+// it.
+
+// Fq block ``blk`` of lane ``col`` of an Fq12 plane, or of ONE where the
+// mask is 0.
+LH_FN Fp masked_block(const int32_t* f, const int32_t* mask, long long m,
+                      long long col, int blk) {
+  return mask[col] != 0 ? load_fp(f, m, col, blk)
+                        : blk == 0 ? KC.ONE : fp_zero();
+}
 
 struct PairShared {
   Fp12 A[2];         // the operands
@@ -1500,19 +1446,166 @@ LH_FN void product_pair_body(const Run& run, PairShared& sh, const int32_t* f,
     LH_ITEMS(i, tid, 24) {
       const long long col = a + i / 12 * LH_LANES;
       const int blk = i % 12;
-      fp12_block(sh.A[i / 12], blk) =
-          mask[col] != 0 ? load_fp(f, m, col, blk)
-                         : blk == 0 ? KC.ONE : fp_zero();
+      fp12_block(sh.A[i / 12], blk) = masked_block(f, mask, m, col, blk);
     }
   });
-  coop_wave(run, 54, [&](int i, Fp& x, Fp& y) {
+  coop_fp12_muls(run, sh.M, sh.V, sh.W, 1, [&](int i, Fp& x, Fp& y) {
     fp12_mul_opnd(sh.A[0], sh.A[1], i, x, y);
-  }, [&](int i, const Fp& r) { sh.M[i] = r; });
-  coop_fp12_post(run, sh.M, sh.V, sh.W, 1, 54,
-                 [&](int, int h, int c, const Fp2& v) {
-                   store_fp2(out, m / 2, lane, 2 * (3 * h + c), v);
-                 });
+  }, [&](int, int h, int c, const Fp2& v) {
+    store_fp2(out, m / 2, lane, 2 * (3 * h + c), v);
+  });
 }
+
+// The roll butterfly (lh_product_kernel): a block per residue class t mod
+// 128 of the (384, M) plane, M = 128R a power of two.  Its lanes t + 128r,
+// r < R, sit in shared memory, double-buffered: the masked lanes are loaded
+// into buffer 0, then level v = R/2 ... 1 sets lane r to the product of
+// lane r and lane (r + v) mod R of the previous level (the plain version's
+// roll by w = 128v: lane r first, its partner second), read from one
+// buffer and written to the other; the last level (v = 1) stores to out,
+// and at R = 1 the load stores the masked input.  A class never reads
+// another (every roll is a multiple of 128 lanes), so a level ends at the
+// block's barrier.  The block runs ``groups`` groups of G threads; in a
+// level, group g takes ``lanes`` lanes at a time (r0 = g * lanes, then r0
+// + groups * lanes ...) as ONE wave of their 54 * lanes products and
+// their post phases, on its own ProductWave.  A level's chain is one wave:
+// log2(R) waves in all, where one thread a class ran R log2(R) Fq12
+// products in a row.
+
+#define LH_PRODUCT_G 64          // threads a group
+#define LH_PRODUCT_LANES 1       // lanes of a class a group's wave takes
+#define LH_PRODUCT_GROUPS_MAX 8  // groups a block (named barriers 1..8)
+#define LH_PRODUCT_R_MAX 128     // lanes a class: 2 x 128 Fq12 in 227 KB
+
+template <int K>
+struct ProductWave {   // one group's wave of up to K Fq12 products
+  Fp M[54 * K];
+  Fp2 V[18 * K];
+  Fp6 W[3 * K];
+};
+
+// R lanes a class, lanes a group's wave, groups a block, at M = m lanes
+// and waves of at most K lanes (host and card).
+struct ProductShape {
+  int R, lanes, groups;
+};
+#if defined(__CUDACC__)
+__host__ __device__ __forceinline__
+#else
+static inline
+#endif
+ProductShape product_shape(long long m, int K) {
+  const int R = (int)(m / LH_LANES), k = R < K ? R : K, n = R / k;
+  return {R, k, n < LH_PRODUCT_GROUPS_MAX ? n : LH_PRODUCT_GROUPS_MAX};
+}
+
+// Group g's share of the load: lanes g, g + groups, ... of class t.
+template <class Run>
+LH_FN void product_class_load(const Run& run, Fp12* buf, const int32_t* f,
+                              const int32_t* mask, int32_t* out, long long m,
+                              int t, const ProductShape& s, int g) {
+  run([&](int tid) {
+    LH_ITEMS(i, tid, 12 * (s.R / s.groups)) {
+      const int r = g + s.groups * (i / 12), blk = i % 12;
+      const long long col = (long long)r * LH_LANES + t;
+      const Fp v = masked_block(f, mask, m, col, blk);
+      if (s.R == 1)
+        store_fp(out, m, col, blk, v);
+      else
+        fp12_block(buf[r], blk) = v;
+    }
+  });
+}
+
+// Group g's lanes of level v: cur holds the previous level, next (or, at v
+// = 1, out) takes this one.
+template <int K, class Run>
+LH_FN void product_class_level(const Run& run, ProductWave<K>& sh,
+                               const Fp12* cur, Fp12* next, int32_t* out,
+                               long long m, int t, const ProductShape& s,
+                               int g, int v) {
+#pragma unroll 1
+  for (int r0 = g * s.lanes; r0 < s.R; r0 += s.groups * s.lanes)
+    coop_fp12_muls(run, sh.M, sh.V, sh.W, s.lanes, [&](int i, Fp& x, Fp& y) {
+      const int r = r0 + i / 54;
+      fp12_mul_opnd(cur[r], cur[(r + v) & (s.R - 1)], i % 54, x, y);
+    }, [&](int q, int h, int c, const Fp2& val) {
+      const int r = r0 + q;
+      if (v == 1)
+        store_fp2(out, m, (long long)r * LH_LANES + t, 2 * (3 * h + c), val);
+      else
+        next[r].c[h].c[c] = val;
+    });
+}
+
+// Class t's butterfly: ``groups(fn)`` runs fn(g) for the block's groups g
+// (on the card this thread's group, then the block's barrier), ``run`` the
+// phases of a group.  buf holds 2R lanes, waves one ProductWave a group.
+template <int K, class Run, class Groups>
+LH_FN void product_class_body(const Run& run, const Groups& groups, Fp12* buf,
+                              ProductWave<K>* waves, const int32_t* f,
+                              const int32_t* mask, int32_t* out, long long m,
+                              int t) {
+  const ProductShape s = product_shape(m, K);
+  groups([&](int g) { product_class_load(run, buf, f, mask, out, m, t, s, g); });
+  int cur = 0;
+#pragma unroll 1
+  for (int v = s.R / 2; v >= 1; v >>= 1, cur ^= 1)
+    groups([&](int g) {
+      product_class_level<K>(run, waves[g], buf + cur * s.R,
+                             buf + (cur ^ 1) * s.R, out, m, t, s, g, v);
+    });
+}
+
+#if defined(__CUDACC__)
+// Block t (blockIdx.x) of the butterfly, groups of G threads, its shared
+// memory the 2R lanes and then a ProductWave<K> a group.
+struct BlockGroups {
+  int g;   // this thread's group
+  template <class F>
+  LH_MFN void operator()(F&& fn) const {
+    fn(g);
+    __syncthreads();
+  }
+};
+
+template <int G, int K>
+LH_FN void product_classes(const int32_t* f, const int32_t* mask,
+                           int32_t* out, long long m) {
+  extern __shared__ __align__(16) unsigned char lh_group_smem[];
+  const int gi = threadIdx.x / G, groups = blockDim.x / G;
+  Fp12* buf = reinterpret_cast<Fp12*>(lh_group_smem);
+  product_class_body<K>(
+      GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
+      BlockGroups{gi}, buf,
+      reinterpret_cast<ProductWave<K>*>(buf + 2 * (m / LH_LANES)), f, mask,
+      out, m, (int)blockIdx.x);
+}
+
+// Launch ``kernel`` (a product_classes<G, K> kernel) on the (384, m)
+// plane: 128 blocks, product_shape's groups of G threads each, the dynamic
+// shared memory opted in above 48 KB.  m must be a power of two with 128
+// <= m <= 128 LH_PRODUCT_R_MAX.
+template <int G, int K>
+static int launch_product(void (*kernel)(const int32_t*, const int32_t*,
+                                         int32_t*, long long),
+                          const int32_t* f, const int32_t* mask, int32_t* out,
+                          long long m, void* stream) {
+  static_assert(G >= 32 && G * LH_PRODUCT_GROUPS_MAX <= 1024, "launch shape");
+  if (m < LH_LANES || m > (long long)LH_LANES * LH_PRODUCT_R_MAX ||
+      (m & (m - 1)))
+    return (int)cudaErrorInvalidValue;
+  const ProductShape s = product_shape(m, K);
+  const int bytes = 2 * s.R * (int)sizeof(Fp12) +
+                    s.groups * (int)sizeof(ProductWave<K>);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<LH_LANES, G * s.groups, bytes, (cudaStream_t)stream>>>(f, mask,
+                                                                  out, m);
+  return (int)cudaGetLastError();
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // Hash to G2: one group per message

@@ -5,8 +5,10 @@
 // clock (clock64) after every barrier of one group (group 0 of block 0)
 // when given a stamp buffer; the sigma ladder (G = 16, 32 or 64, then the
 // port's butterfly), prepare (G = 8, 16 or 32), product_chunks (G = 32 or
-// 64) and the Miller loop alone (G = 64 or 128) at any launch shape; and
-// the latency of one dependent Fq addition and subtraction.  The port
+// 64), the Miller loop alone (G = 64 or 128) at any launch shape, the
+// product butterfly at G = 32 or 64 threads a group and K = 1 or 2 lanes a
+// group's wave; and the latency of one dependent Fq addition and
+// subtraction.  The port
 // never calls this library.
 
 #include <cuda_runtime.h>
@@ -118,6 +120,13 @@ lh_miller_phases_kernel(const int32_t* g1, const int32_t* g2, int32_t* out,
   miller_body(GroupRun<G>{(int)threadIdx.x % G, groups == 1 ? 0 : 1 + gi},
               reinterpret_cast<MillerShared*>(lh_group_smem)[gi], g1, g2, out,
               m, (long long)blockIdx.x * groups + gi);
+}
+
+template <int G, int K>
+__global__ void __launch_bounds__(LH_PRODUCT_GROUPS_MAX * G)
+lh_product_phases_kernel(const int32_t* f, const int32_t* mask, int32_t* out,
+                         long long m) {
+  product_classes<G, K>(f, mask, out, m);
 }
 
 // One group per work item (n of them), ``groups`` a block of G threads.
@@ -256,6 +265,25 @@ int lh_miller_phases(const int32_t* g1, const int32_t* g2, int32_t* out,
     case 64: return go(lh_miller_phases_kernel<64>);
     case 128: return go(lh_miller_phases_kernel<128>);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The product butterfly with groups of G threads (32 or 64) taking K
+// lanes (1 or 2) a wave; groups a block follow from m (product_shape).
+int lh_product_phases(const int32_t* f, const int32_t* mask, int32_t* out,
+                      long long m, int G, int K, void* stream) {
+  if (G == 32 && K == 1)
+    return launch_product<32, 1>(lh_product_phases_kernel<32, 1>, f, mask,
+                                 out, m, stream);
+  if (G == 32 && K == 2)
+    return launch_product<32, 2>(lh_product_phases_kernel<32, 2>, f, mask,
+                                 out, m, stream);
+  if (G == 64 && K == 1)
+    return launch_product<64, 1>(lh_product_phases_kernel<64, 1>, f, mask,
+                                 out, m, stream);
+  if (G == 64 && K == 2)
+    return launch_product<64, 2>(lh_product_phases_kernel<64, 2>, f, mask,
+                                 out, m, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,8 @@
 """Tuning probe for the thread-group kernels of the port on one NVIDIA
 GPU: ``lh_miller_fold_kernel``, ``lh_hash_g2_kernel``, the sigma ladder
 (``lh_sigma_ladder_kernel``), ``lh_prepare_kernel``,
-``lh_product_chunks_kernel`` and ``lh_miller_kernel``.
+``lh_product_chunks_kernel``, ``lh_miller_kernel`` and
+``lh_product_kernel``.
 
     python3 probe_group_kernels.py
 
@@ -21,7 +22,9 @@ after every barrier of one group) and prints:
    K = 512 (half the sets live) and K = 1 items; product_chunks at G =
    32, 64 on 768 and 256 input lanes (five calls queued behind a spin,
    ``chip_smoke.queued_ms``: one call at a time would time its launch),
-   and the Miller loop alone at G = 64, 128 on 256 and 1024 lanes;
+   the Miller loop alone at G = 64, 128 on 256 and 1024 lanes, and the
+   product butterfly at (G, K) = 32 or 64 threads a group and 1 or 2
+   lanes a group's wave on 256, 512 and 1024 lanes (calls queued);
 2. the phase profile of one group at the port's launch shape: cycles of
    each phase of a Miller doubling and addition step (one live lane), and
    of the hash's ladders, (p²+7)/16 bits and point additions;
@@ -57,6 +60,7 @@ SIGMA_SHAPES = ((16, 2), (16, 4), (32, 1), (32, 2), (32, 4), (64, 1),
 PREP_SHAPES = ((8, 4), (8, 8), (16, 1), (16, 2), (16, 4), (32, 1), (32, 2))
 PCHUNK_SHAPES = ((32, 2), (32, 4), (64, 1), (64, 2), (64, 4))
 MILLER_ALONE_SHAPES = ((64, 1), (64, 2), (128, 1))
+PRODUCT_SHAPES = ((32, 1), (32, 2), (64, 1), (64, 2))   # (G, K)
 STAMPS = 4096                 # LH_STAMPS of csrc/bls381_phases.cu
 
 
@@ -75,10 +79,10 @@ def miller_inputs(torch, rng, F, LF, S) -> list:
 
 
 def shape_rows(torch, card, name, note, shapes, port, at, outs,
-               timer=cuda_ms) -> None:
+               timer=cuda_ms, what="(G, groups a block)") -> None:
     """One table row: port() (the port's kernel, a tuple of outputs)
-    against at(G, groups) writing ``outs`` at each launch shape, raw
-    equal, and each timed by ``timer`` (five calls)."""
+    against at(*shape) writing ``outs`` at each launch shape ``what``
+    names, raw equal, and each timed by ``timer`` (five calls)."""
     want = port()
     times = {}
     for G, n in shapes:
@@ -89,7 +93,7 @@ def shape_rows(torch, card, name, note, shapes, port, at, outs,
         check(all(max_abs_err(torch, o, w) == 0 for o, w in zip(outs, want)),
               f"{name} at ({G}, {n}) != the port's kernel")
         times[(G, n)] = timer(torch, go, 5)
-    print(f"{name} launch shapes (G, groups a block) at {note}, raw equal, "
+    print(f"{name} launch shapes {what} at {note}, raw equal, "
           f"ms: " + ", ".join(f"{c} {t:.4f}" for c, t in times.items())
           + f"; the port's kernel {timer(torch, port, 5):.4f} [{card}]")
 
@@ -162,8 +166,9 @@ def ladder_shape_table(torch, card, lib, PK, rng, F, LF, S) -> None:
 def fq12_shape_table(torch, card, lib, PK, rng, F, LF) -> None:
     """product_chunks (every lane unmasked, as the verify path calls it;
     timed with its calls queued behind a spin, as its launch is longer
-    than the kernel) and the Miller loop alone at each launch shape, raw
-    equal to the port's kernels and timed beside them, on random
+    than the kernel), the Miller loop alone and the product butterfly
+    (about 20% of the lanes masked; calls queued) at each launch shape,
+    raw equal to the port's kernels and timed beside them, on random
     planes."""
     stream = torch.cuda.current_stream().cuda_stream
     for lanes in (768, 256):
@@ -189,6 +194,17 @@ def fq12_shape_table(torch, card, lib, PK, rng, F, LF) -> None:
                        lib.lh_miller_phases(g1.data_ptr(), g2.data_ptr(),
                                             out.data_ptr(), m, G, n, stream),
                    (out,))
+    for lanes in (256, 512, 1024):
+        f = rand_planes(torch, rng, F, LF, 12, lanes)
+        mask = torch.from_numpy((rng.random((1, lanes)) < 0.8)
+                                .astype(np.int32)).cuda()
+        out = torch.empty((384, lanes), dtype=torch.int32, device="cuda")
+        shape_rows(torch, card, "product", f"{lanes} lanes", PRODUCT_SHAPES,
+                   lambda f=f, mask=mask: (PK.product_kernel_call(f, mask),),
+                   lambda G, K, f=f, mask=mask, out=out, m=lanes:
+                       lib.lh_product_phases(f.data_ptr(), mask.data_ptr(),
+                                             out.data_ptr(), m, G, K, stream),
+                   (out,), queued_ms, "(G, lanes a group's wave)")
 
 
 def phase_profile(torch, card, clk_hz, lib, PK, HK, g1, g2, mask, u) -> None:
@@ -299,7 +315,8 @@ def main() -> None:
         "lh_sigma_phases": [P, P, P, P, P, LL, I, I, P],
         "lh_prepare_phases": [P, P, P, P, P, P, LL, I, I, I, P],
         "lh_product_chunks_phases": [P, P, P, LL, I, I, P],
-        "lh_miller_phases": [P, P, P, LL, I, I, P]})
+        "lh_miller_phases": [P, P, P, LL, I, I, P],
+        "lh_product_phases": [P, P, P, LL, I, I, P]})
     consts = PK.cuda_consts()
     check(lib.lh_phases_init(consts.ctypes.data, consts.size) == 0,
           "constant upload failed")

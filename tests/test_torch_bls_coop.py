@@ -7,15 +7,18 @@ group per lane pair), ``hash_g2_body`` (one group per message),
 ``sigma_ladder_body`` (one group per lane) with the sigma butterfly's
 cluster steps (``sigma_fold_step``, the cluster's blocks one after the
 other between its barriers), ``prepare_body`` (one group per set, sub-warp
-groups included) and ``product_pair_body`` (one group per output lane)
-group by group, every phase for the threads of a group one after the other, and
-each must equal its plain version limb for limb at every group size its
-kernel may launch with.  The layer's rule is that no item of a phase
+groups included), ``product_pair_body`` (one group per output lane) and
+``product_class_body`` (the roll butterfly: a block per residue class, its
+groups one after the other between the block's barriers) group by group,
+every phase for the threads of a group one after the other, and each must
+equal its plain version limb for limb at every group size its kernel may
+launch with.  The layer's rule is that no item of a phase
 reads what another item of that phase writes; the card runs a phase's
 threads (and a cluster's blocks) in no fixed order, so each body is run
 with the threads of every phase in three orders (0 ... G-1, G-1 ... 0 and
 one fixed shuffle): an item that breaks the rule reads another value in
-one of them, and the output changes.
+one of them, and the output changes.  The butterfly's groups run in the
+same three orders within each level.
 """
 
 import ctypes
@@ -100,6 +103,29 @@ static void product_groups(const int32_t* f, const int32_t* mask,
   for (long long l = 0; l < m / 2; ++l)
     product_pair_body(run, *sh, f, mask, out, m, l);
 }
+// The roll butterfly block by block (class t = 0 ... 127): each level's
+// groups one after the other in ``order``, the block's barrier between
+// levels, as product_classes runs it on the card.
+template <int G, int K>
+static int product_blocks(const int32_t* f, const int32_t* mask,
+                          int32_t* out, long long m, int order) {
+  const HostRun<G> run(order);
+  const HostRun<LH_PRODUCT_GROUPS_MAX> perm(order);
+  const ProductShape s = product_shape(m, K);
+  Fp12* buf = (Fp12*)malloc(2 * s.R * sizeof(Fp12));
+  ProductWave<K>* waves =
+      (ProductWave<K>*)malloc(s.groups * sizeof(ProductWave<K>));
+  if (!buf || !waves) return -1;
+  auto groups = [&](auto&& fn) {
+    for (int i = 0; i < LH_PRODUCT_GROUPS_MAX; ++i)
+      if (perm.perm[i] < s.groups) fn(perm.perm[i]);
+  };
+  for (int t = 0; t < LH_LANES; ++t)
+    product_class_body<K>(run, groups, buf, waves, f, mask, out, m, t);
+  free(buf);
+  free(waves);
+  return 0;
+}
 // The Miller loop alone on the n pairs given by index.
 template <int G>
 static void miller_alone_groups(const int32_t* g1, const int32_t* g2,
@@ -165,6 +191,14 @@ int host_product_chunks(const int32_t* f, const int32_t* mask, int32_t* out,
   else product_groups<64>(f, mask, out, m, sh, order);
   free(sh);
   return 0;
+}
+int host_product(const int32_t* f, const int32_t* mask, int32_t* out,
+                 long long m, int G, int K, int order) {
+  if (G == 32 && K == 1) return product_blocks<32, 1>(f, mask, out, m, order);
+  if (G == 32 && K == 2) return product_blocks<32, 2>(f, mask, out, m, order);
+  if (G == 64 && K == 1) return product_blocks<64, 1>(f, mask, out, m, order);
+  if (G == 64 && K == 2) return product_blocks<64, 2>(f, mask, out, m, order);
+  return -2;
 }
 int host_miller(const int32_t* g1, const int32_t* g2, int32_t* out,
                 long long m, const long long* pairs, int n, int G,
@@ -239,6 +273,8 @@ def host_lib(tmp_path_factory):
                                         ctypes.c_int, ctypes.c_int]
     lib.host_miller.argtypes = [P, P, P, ctypes.c_longlong, P, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int]
+    lib.host_product.argtypes = [P, P, P, ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int]
     consts = PK.cuda_consts()
     assert lib.host_init(consts.ctypes.data, consts.size) == 0
     return lib
@@ -543,3 +579,49 @@ def test_miller_groups_on_host_match_plain(host_lib, miller_planes, G, order):
     rest = np.setdiff1d(np.arange(m), cols)
     assert not out[:, rest].any()
     assert not np.array_equal(want[:, 0], want[:, 200])     # real vs zero
+
+
+# (threads a group, lanes a group's wave) of the butterfly: the port's
+# shape (LH_PRODUCT_G, LH_PRODUCT_LANES) and the probe's others
+PRODUCT_SHAPES = ((32, 1), (32, 2), (64, 1), (64, 2))
+PRODUCT_MASKS = ("ones", "random mask", "all zero")
+
+
+@pytest.fixture(scope="module")
+def butterfly_planes():
+    """1024 lanes of random Fq12 values and three masks over them (all
+    ones, about 30% of the lanes ONE, all ONE); ``want(m, case)`` is the
+    plain butterfly of the first m lanes, computed once."""
+    rng = np.random.default_rng(81)
+    f = _rand_fq12_planes(rng, 8 * S)
+    masks = {"ones": np.ones((1, 8 * S), np.int32),
+             "random mask": (rng.random((1, 8 * S)) < 0.7).astype(np.int32),
+             "all zero": np.zeros((1, 8 * S), np.int32)}
+    done = {}
+
+    def want(m, case):
+        if (m, case) not in done:
+            fm = np.ascontiguousarray(f[:, :m])
+            mm = np.ascontiguousarray(masks[case][:, :m])
+            done[m, case] = (fm, mm, PK.product_plain(_t(fm), _t(mm)).numpy())
+        return done[m, case]
+
+    return want
+
+
+@pytest.mark.parametrize("order", sorted(ORDERS))
+@pytest.mark.parametrize("shape", PRODUCT_SHAPES, ids=lambda s: "G%d-K%d" % s)
+@pytest.mark.parametrize("case", PRODUCT_MASKS)
+@pytest.mark.parametrize("m", [S, 2 * S, 4 * S, 8 * S])
+def test_product_butterfly_on_host_matches_plain(host_lib, butterfly_planes,
+                                                 m, case, shape, order):
+    """product_class_body, a block per residue class with groups of G
+    threads taking K lanes a wave, against product_plain raw on M = 128 …
+    1024 lanes (at 128 no level runs: the masked input), with the threads
+    of each phase and the groups of each level in ``order``."""
+    f, mask, want = butterfly_planes(m, case)
+    out = np.zeros((384, m), np.int32)
+    assert host_lib.host_product(f.ctypes.data, mask.ctypes.data,
+                                 out.ctypes.data, m, *shape,
+                                 ORDERS[order]) == 0
+    assert np.array_equal(out, want)
