@@ -7,7 +7,9 @@ Phases, each of which fails the run with a non-zero exit:
 
 1. Print the card (``nvidia-smi`` name and power limit) and the torch /
    CUDA versions; build the CUDA kernels from ``lighthouse_tpu_torch/
-   csrc`` and count their SASS instructions.
+   csrc`` and count their SASS instructions; beside them, build the
+   native host library (g++ of ``native/bls381.cpp`` into
+   ``build/native/``), which must load (else g++'s output is printed).
 2. Hold each kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes (``hash64`` on 2^20 pairs, on
    2^20 + 37 pairs for the masked tail, on strided tree-level views; the
@@ -21,8 +23,14 @@ Phases, each of which fails the run with a non-zero exit:
    and 1% of ``effective_balance`` and ``balances`` must all agree, each
    warm root with a fresh uncached root of the mutated state; the
    registry root is also checked against an independent hashlib fold.
-   Each kernel's launch counter is zeroed just before this phase and
-   must be > 0 just after it.
+   The host-cached cold root and the materialize stream the registry's
+   raw columns through the chunk stager (side-stream copies from pinned
+   memory; chunks, wait and transfer ms and fallbacks printed, fallbacks
+   must be 0); every byte count comes from the device ledger.  Each
+   kernel's launch counter is zeroed just before this phase and must be
+   > 0 just after it; after that read, 2^20 random leaves through the
+   stager in 4 chunks must give every level raw equal to the one-copy
+   build.
 4. Where the time goes: the clean, warm (1%) and uncached roots once
    more under ``torch.profiler`` (device busy time and idle share, top
    device and host ops) and once under cProfile (top Python functions).
@@ -35,7 +43,7 @@ Phases, each of which fails the run with a non-zero exit:
    live lanes, with every lane live, with every lane dead and with only
    lanes j + 128 live, finalize on a product that is 1 and on one that is
    not.  Outputs agree limb for limb and the verdict exactly; 4 hash
-   columns match the host ``hash_to_g2``.  A probe times one thread's
+   columns match the host's pure-Python ``hash_to_g2_python``.  A probe times one thread's
    chain of dependent Montgomery products: the latency of one prices the
    chain bounds of the BLS kernels, whose critical paths are dependent
    chains.  Each kernel is timed with CUDA events beside its plain
@@ -50,9 +58,9 @@ Phases, each of which fails the run with a non-zero exit:
    sync-committee shape (512 shared keys × 256 messages, built like
    ``bench.py``): the valid batch verifies, a swapped signature and an
    altered message fail.  The BLS launch counters are zeroed just before
-   and must be > 0 just after; the wall time, the stage split, the
-   device idle share and the CUDA kernels launched (torch.profiler) are
-   printed.
+   and must be > 0 just after; the wall time, ``aggregate_keys_ms`` (the
+   512-key sum, by the native library), the stage split, the device idle
+   share and the CUDA kernels launched (torch.profiler) are printed.
 7. The general path's kernels against their plain versions on the card,
    limb for limb, at its shapes: prepare on BASELINE row 1's marshalled
    batch (K = 16, C = 8) and again with masked key slots, a set whose
@@ -83,10 +91,24 @@ Phases, each of which fails the run with a non-zero exit:
    verifies, a swapped signature fails; the two items' Miller+fold and
    prepare inputs, recorded in one more call, give each kernel's output
    raw (prepare is timed on both items beside its chain bound);
-   ``verify`` and ``aggregate_verify`` once each, valid and tampered.
+   ``verify`` and ``aggregate_verify`` once each, valid and tampered, on
+   the device route (fast path off) and on the native host fast path,
+   which must launch no kernel.
 10. ``profile_stages(C=8)`` (the unfused Miller kernel) and the
     prepare → miller(256) → product chain (the product kernel), each
     with its launches counted and its time printed.
+11. The host/device crossover: 1, 2, 4, 8 and 16 sets of BASELINE row
+    1's shape, the median of 5 warm calls on the native host path
+    (``LIGHTHOUSE_TPU_HOST_FASTPATH_MAX=16``, no kernel may launch) and
+    on the device pipeline (``=0``); a tampered batch fails on the host.
+12. The Merkle proof engine on the resident 2^20 registry tree: 1024
+    random validator branches in one gather, each equal to a hashlib walk
+    (sampled record roots from the raw columns, the levels above from the
+    record-root plane) and verified with ``verify_merkle_proof``; its
+    device→host bytes equal 32 × distinct nodes; ``ProofServer.
+    field_branch`` for every field of the state equals a hashlib fold of
+    the field roots to the state root.  Then the device ledger's snapshot
+    (with the caching allocator's memory figures).
 
 The line before the last is one JSON object with each kernel's launches,
 error, time, plain-version time and bound (for every BLS kernel also its
@@ -132,6 +154,8 @@ SYNC_PARTICIPATION = 460 / 512
 SHARED_PATH_KERNELS = ("hash_g2", "sigma", "sigma_combine", "miller_fold",
                        "finalize")
 CHAIN_SHORT, CHAIN_LONG = 1000, 21000   # dependent products of the probe
+CROSSOVER_SETS = (1, 2, 4, 8, 16)  # host/device crossover batch sizes
+PROOF_BATCH = 1024            # validator branches in one proof gather
 SPIN_CYCLES = 20_000_000      # ~10 ms at 2 GHz: the queue ahead of queued_ms
 MAX_WARM_LAUNCHES = 200       # CUDA kernels per warm general verify
 # A launch counter that counts a call of two CUDA kernels (the sigma
@@ -188,17 +212,38 @@ def sass_instruction_counts(so_path: str) -> dict:
 
 
 def phase_build(torch, mk, pk, cuda_build) -> dict:
+    import threading
+
+    from lighthouse_tpu_torch.crypto import native
+
     card = smi("name,power.limit")
     print(f"card: {card}")
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}  python "
           f"{sys.version.split()[0]}")
     t0 = time.perf_counter()
+    native_err = []
+
+    def build_native():
+        try:
+            native.available(block=True)
+        except native.NativeBuildError as e:
+            native_err.append(str(e))
+
+    g_native = threading.Thread(target=build_native)
+    g_native.start()               # g++ beside the nvcc processes
     built = cuda_build.build_all(["sha256_merkle", "bls381"])  # 2 nvcc at once
     mk.kernel_library()
     pk.kernel_library()
     print(f"kernel builds: {time.perf_counter() - t0:.1f} s wall, every "
           f"nvcc started together")
+    g_native.join()
+    check(not native_err, "the native BLS library did not build:\n"
+          + "".join(native_err))
+    check(native.available(block=True) is True,
+          "the native BLS library is not available")
+    print(f"native host library: {native.BUILD_INFO['build_s']:.1f} s g++ "
+          f"({' '.join(native.GXX_FLAGS)}) -> {native.BUILD_INFO['path']}")
     sass = {}
     for lib in ("sha256_merkle", "bls381"):
         took, ptxas = built.get(lib, (0.0, ""))
@@ -439,49 +484,74 @@ def _hash_rows(msgs: np.ndarray) -> np.ndarray:
     return np.frombuffer(out, dtype=np.uint8).reshape(-1, 32)
 
 
-def registry_root_hashlib(reg, limit: int) -> bytes:
-    """The SSZ registry root from the raw columns by hashlib alone: record
-    mini-trees (pubkey pre-hash, 3 levels), the record-root tree, zero
-    caps to the limit, the length mixin."""
-    n = len(reg)
+def record_roots_hashlib(reg, idx=None) -> np.ndarray:
+    """(k, 32) u8 hash_tree_root of the records at ``idx`` (all when None)
+    from the raw columns by hashlib alone: the pubkey pre-hash, then the
+    record's 3-level mini-tree."""
+    sel = slice(None, len(reg)) if idx is None else np.asarray(idx)
 
-    def u64_chunks(col):
-        out = np.zeros((n, 32), np.uint8)
-        out[:, :8] = np.ascontiguousarray(col[:n], dtype="<u8").view(
-            np.uint8).reshape(n, 8)
+    def col(name):
+        return np.asarray(reg.col(name))[sel]
+
+    k = col("slashed").shape[0]
+
+    def u64_chunks(c):
+        out = np.zeros((k, 32), np.uint8)
+        out[:, :8] = np.ascontiguousarray(c, dtype="<u8").view(
+            np.uint8).reshape(k, 8)
         return out
 
-    pk = np.zeros((n, 64), np.uint8)
-    pk[:, :48] = reg.col("pubkey")
-    slashed = np.zeros((n, 32), np.uint8)
-    slashed[:, 0] = reg.col("slashed")
+    pk = np.zeros((k, 64), np.uint8)
+    pk[:, :48] = col("pubkey")
+    slashed = np.zeros((k, 32), np.uint8)
+    slashed[:, 0] = col("slashed")
     leaves = np.stack([
-        _hash_rows(pk), reg.col("withdrawal_credentials"),
-        u64_chunks(reg.col("effective_balance")), slashed,
-        u64_chunks(reg.col("activation_eligibility_epoch")),
-        u64_chunks(reg.col("activation_epoch")),
-        u64_chunks(reg.col("exit_epoch")),
-        u64_chunks(reg.col("withdrawable_epoch"))], axis=1)  # (n, 8, 32)
+        _hash_rows(pk), col("withdrawal_credentials"),
+        u64_chunks(col("effective_balance")), slashed,
+        u64_chunks(col("activation_eligibility_epoch")),
+        u64_chunks(col("activation_epoch")),
+        u64_chunks(col("exit_epoch")),
+        u64_chunks(col("withdrawable_epoch"))], axis=1)  # (k, 8, 32)
     level = leaves.reshape(-1, 64)
     for _ in range(3):
         level = _hash_rows(level)
-        level = level.reshape(-1, 64) if level.shape[0] > n else level
-    w = 1 << (n - 1).bit_length()
-    nodes = np.zeros((w, 32), np.uint8)
-    nodes[:n] = level
+        level = level.reshape(-1, 64) if level.shape[0] > k else level
+    return level
+
+
+def tree_levels_hashlib(nodes: np.ndarray) -> list:
+    """Every level of the tree over ``(w, 32)`` u8 nodes (w a power of
+    two) by hashlib: ``[nodes, ..., (1, 32) root]``."""
+    levels = [nodes]
+    while levels[-1].shape[0] > 1:
+        levels.append(_hash_rows(levels[-1].reshape(-1, 64)))
+    return levels
+
+
+def zero_cap_hashlib(root: bytes, lvl: int, limit: int, n: int) -> bytes:
+    """Fold a subtree root at level ``lvl`` with zero subtrees up to the
+    ``limit``-leaf list depth, then mix in the length ``n``."""
     zero = [b"\x00" * 32]
     depth = (limit - 1).bit_length()
     for _ in range(depth):
         zero.append(hashlib.sha256(zero[-1] * 2).digest())
-    lvl = 0
-    while nodes.shape[0] > 1:
-        nodes = _hash_rows(nodes.reshape(-1, 64))
-        lvl += 1
-    root = nodes[0].tobytes()
     while lvl < depth:
         root = hashlib.sha256(root + zero[lvl]).digest()
         lvl += 1
     return hashlib.sha256(root + n.to_bytes(32, "little")).digest()
+
+
+def registry_root_hashlib(reg, limit: int) -> bytes:
+    """The SSZ registry root from the raw columns by hashlib alone: record
+    mini-trees, the record-root tree, zero caps to the limit, the length
+    mixin."""
+    n = len(reg)
+    w = 1 << (n - 1).bit_length()
+    nodes = np.zeros((w, 32), np.uint8)
+    nodes[:n] = record_roots_hashlib(reg)
+    levels = tree_levels_hashlib(nodes)
+    return zero_cap_hashlib(levels[-1][0].tobytes(), len(levels) - 1,
+                            limit, n)
 
 
 def timed(torch, fn):
@@ -492,11 +562,42 @@ def timed(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def ledger_moved(LEDGER, before: dict) -> dict:
+    """Bytes each way over every subsystem since ``before`` (a
+    ``LEDGER.transfer_totals()``), from the ledger alone, with the
+    host→device bytes of each subsystem that moved any."""
+    after = LEDGER.transfer_totals()
+    return {"h2d": sum(after[s][0] - before[s][0] for s in after),
+            "d2h": sum(after[s][1] - before[s][1] for s in after),
+            "h2d_by": {s: after[s][0] - before[s][0] for s in after
+                       if after[s][0] != before[s][0]}}
+
+
+# The raw bytes of one SSZ Validator record: pubkey, withdrawal
+# credentials, effective balance, slashed, four epochs.
+RECORD_RAW_BYTES = 48 + 32 + 8 + 1 + 4 * 8
+
+
+def dirty_push_bytes(k: int, row_bytes: int) -> int:
+    """H2D of one scatter of ``k`` dirty rows: the batch padded to its
+    power-of-two bucket (at least 8), each entry an 8-byte index and its
+    row."""
+    return 0 if k == 0 else max(8, 1 << (k - 1).bit_length()) * (
+        8 + row_bytes)
+
+
+def stager_note(stats: dict) -> str:
+    return ", ".join(f"{k} {round(v, 2) if isinstance(v, float) else v}"
+                     for k, v in stats.items())
+
+
 def phase_state_root(torch, hw: dict) -> dict:
-    from lighthouse_tpu_torch import device
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
     from lighthouse_tpu_torch.ops import merkle_kernel as mk
     from lighthouse_tpu_torch.types import ForkName, MAINNET, spec_types
-    from lighthouse_tpu_torch.types.device_state import materialize_state
+    from lighthouse_tpu_torch.types import validators as tv
+    from lighthouse_tpu_torch.types.device_state import (
+        LAST_MATERIALIZE_STATS, materialize_state)
     from lighthouse_tpu_torch.types.validators import (
         ValidatorRegistry, registry_device_columns, registry_root_device)
 
@@ -545,27 +646,52 @@ def phase_state_root(torch, hw: dict) -> dict:
     host_state = state.copy()
     os.environ["LIGHTHOUSE_TPU_DEVICE_STATE"] = "0"
     before = dict(mk.LAUNCHES)
+    mk.reset_push_stats()
+    tv.LAST_COLD_TIMINGS.clear()
     r_host, host_ms = timed(torch, host_state.tree_hash_root)
     per_path["host_cached_cold"] = launches_since(before)
     del os.environ["LIGHTHOUSE_TPU_DEVICE_STATE"]
     check(r_host == r_unc, "host-cached root != uncached root")
+    cold_reg = dict(tv.LAST_COLD_TIMINGS)
+    check(cold_reg.get("push_chunks", 0) > 1,
+          f"the registry's cold build did not stream in chunks: {cold_reg}")
+    check(cold_reg["push_fallbacks"] == 0 and mk.LAST_PUSH_STATS.get(
+        "staging_fallbacks", 0) == 0, "a chunk stager fell back")
+    leaf_note = (stager_note(mk.LAST_PUSH_STATS)
+                 or "one copy each (no tree wider than a push chunk)")
     print(f"host-cached cold root: {host_ms:.1f} ms, matches; launches "
-          f"{per_path['host_cached_cold']}")
+          f"{per_path['host_cached_cold']}; registry cold build through "
+          f"the chunk stager: {stager_note(cold_reg)}; leaf builds "
+          f"{leaf_note} [{hw['card']}]")
     del host_state
 
     before = dict(mk.LAUNCHES)
-    device.reset_transfer_counters()
+    ledger0 = LEDGER.transfer_totals()
     _, mat_ms = timed(torch, lambda: check(materialize_state(state),
                                            "materialize_state refused"))
-    mat_bytes = device.transfer_totals()["h2d"]
+    mat_moved = ledger_moved(LEDGER, ledger0)
+    mat_bytes = mat_moved["h2d"]
+    reg_cols = n * RECORD_RAW_BYTES
+    check(mat_moved["h2d_by"].get("registry_mirror") == reg_cols,
+          f"materialize pushed {mat_moved['h2d_by']} B; the registry's raw "
+          f"columns are {reg_cols} B")
+    mat_stager = dict(tv.LAST_COLD_TIMINGS)
+    check(mat_stager.get("push_chunks", 0) > 1
+          and mat_stager["push_fallbacks"] == 0,
+          f"materialize did not stream cleanly in chunks: {mat_stager}")
     clean = [timed(torch, state.tree_hash_root) for _ in range(3)]
     per_path["materialize"] = launches_since(before)
     check(all(r == r_unc for r, _ms in clean),
           "materialized root != uncached root")
     clean_ms = [ms for _r, ms in clean]
-    print(f"materialize: {mat_ms:.1f} ms cold, {mat_bytes} B host->device; "
-          f"clean roots ms {[round(ms, 2) for ms in clean_ms]}; match; "
-          f"launches {per_path['materialize']}")
+    print(f"materialize: {mat_ms:.1f} ms cold, {mat_bytes} B host->device "
+          f"(ledger; {LAST_MATERIALIZE_STATS['bytes_pushed']} B of them to "
+          f"the residency feeders, "
+          f"{LAST_MATERIALIZE_STATS['materialize_ms']:.1f} ms inside "
+          f"materialize_state); registry columns through the chunk stager: "
+          f"{stager_note(mat_stager)}; clean roots ms "
+          f"{[round(ms, 2) for ms in clean_ms]}; match; launches "
+          f"{per_path['materialize']} [{hw['card']}]")
 
     warm = {}
     for frac in (0.001, 0.01):
@@ -574,26 +700,47 @@ def phase_state_root(torch, hw: dict) -> dict:
         for rep in range(3):
             idx = np.sort(rng.choice(n, k, replace=False))
             reg = state.validators
-            reg.wcol("effective_balance")[idx] = (
-                rng.integers(16, 33, k) * 10 ** 9).astype(np.uint64)
+            eb = reg.wcol("effective_balance")
+            new_eb = (rng.integers(16, 33, k) * 10 ** 9).astype(np.uint64)
+            k_records = int(np.count_nonzero(eb[idx] != new_eb))
+            eb[idx] = new_eb
             state.balances[idx] = rng.integers(
                 16 * 10 ** 9, 33 * 10 ** 9, k).astype(np.uint64)
+            k_chunks = np.unique(idx // 4).size   # 4 balances a chunk
+            # Only the dirty rows may go up: the records whose bytes
+            # changed (the registry diffs its columns) and the balance
+            # chunks written (the column keeps the written indices), each
+            # as one bucketed scatter; roots come down.
+            want = {"registry_mirror": dirty_push_bytes(k_records,
+                                                        RECORD_RAW_BYTES),
+                    "packed_cache": dirty_push_bytes(k_chunks, 32)}
+            want = {s: b for s, b in want.items() if b}
             before = dict(mk.LAUNCHES)
-            device.reset_transfer_counters()
+            ledger0 = LEDGER.transfer_totals()
             r_warm, warm_ms = timed(torch, state.tree_hash_root)
-            moved = device.transfer_totals()
+            moved = ledger_moved(LEDGER, ledger0)
+            check(moved["h2d_by"] == want,
+                  f"warm root at {frac:.1%} pushed {moved['h2d_by']} B; "
+                  f"its dirty rows are {want} B")
+            check(moved["d2h"] % 32 == 0
+                  and moved["d2h"] <= 32 * len(type(state).FIELDS),
+                  f"warm root pulled {moved['d2h']} B, more than one root "
+                  f"a field")
             launched = launches_since(before)
             r_fresh = uncached(state)
             check(r_warm == r_fresh,
                   f"warm root != fresh uncached root at {frac:.1%} rep {rep}")
             rows.append({"ms": warm_ms, "h2d": moved["h2d"],
-                         "d2h": moved["d2h"], "launches": launched})
+                         "d2h": moved["d2h"], "launches": launched,
+                         "dirty": (k_records, k_chunks)})
         warm[frac] = rows
         per_path[f"warm_{frac:.1%}"] = rows[-1]["launches"]
         print(f"warm root, {k} dirty records + {k} balances "
               f"({frac:.1%}): ms {[round(r['ms'], 2) for r in rows]} "
               f"(median {statistics.median(r['ms'] for r in rows):.2f}); "
-              f"h2d B/root {[r['h2d'] for r in rows]}; d2h B/root "
+              f"h2d B/root (ledger, each equal to its dirty rows' bucketed "
+              f"bytes) {[r['h2d'] for r in rows]}; changed records, "
+              f"balance chunks {[r['dirty'] for r in rows]}; d2h B/root "
               f"{[r['d2h'] for r in rows]}; launches/root "
               f"{rows[-1]['launches']}; each == fresh uncached root")
 
@@ -601,6 +748,7 @@ def phase_state_root(torch, hw: dict) -> dict:
     print(f"main-path launches: {launches} [{hw['card']}]")
     for name, count in launches.items():
         check(count > 0, f"the main path never launched the {name} kernel")
+    leaf_stager = stage_leaves(torch, hw, mk, rng)
 
     def dirty(frac):
         k = int(n * frac)
@@ -615,7 +763,36 @@ def phase_state_root(torch, hw: dict) -> dict:
         ("uncached root", lambda: None, lambda: uncached(state))])
     return {"launches": launches, "per_path": per_path,
             "uncached_ms": unc_ms, "materialize_ms": mat_ms,
-            "clean_ms": clean_ms, "warm": warm}
+            "clean_ms": clean_ms, "warm": warm, "state": state,
+            "stager": {"host_cached_registry": cold_reg,
+                       "materialize": mat_stager, "leaves": leaf_stager}}
+
+
+def stage_leaves(torch, hw: dict, mk, rng) -> dict:
+    """``merkle_levels_device`` on 2^20 random leaves streamed through the
+    chunk stager (the default push chunk, 2^18 rows: 4 chunks from pinned
+    memory on a side stream) against the one-copy build: every level raw
+    equal, no fallback."""
+    leaves = rng.integers(0, 2 ** 32, (1 << 20, 8), dtype=np.uint64).astype(
+        np.uint32)
+    r_one, one = mk.merkle_levels_device(leaves, chunk_rows=0)
+    for _ in range(2):             # the second build is the one reported
+        mk.reset_push_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_ch, ch = mk.merkle_levels_device(leaves)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    stats = dict(mk.LAST_PUSH_STATS)
+    check(stats.get("chunks", 0) == 4 and stats["staging_fallbacks"] == 0,
+          f"the leaf build did not stream in 4 chunks cleanly: {stats}")
+    check(np.array_equal(r_one, r_ch) and len(one) == len(ch)
+          and all(torch.equal(a, b) for a, b in zip(one, ch)),
+          "chunk-staged levels != one-copy levels")
+    print(f"chunk-staged leaf build, 2^20 leaves: every level raw equal to "
+          f"the one-copy build; {stager_note(stats)}; {wall:.2f} ms wall "
+          f"[{hw['card']}]")
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -1036,7 +1213,8 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
     check(errs["hash_g2"] == 0, "hash_g2 kernel != plain (raw limbs)")
     cols = canonical_blocks(h_k)
     for j in rng.choice(len(entries), 4, replace=False):
-        want = H2C.hash_to_g2(entries[j][2])
+        # the pure-Python curve half: independent of the native library
+        want = H2C.hash_to_g2_python(entries[j][2])
         got = ((cols[0, j] * LF.RINV_INT % F.P, cols[1, j] * LF.RINV_INT
                 % F.P), (cols[2, j] * LF.RINV_INT % F.P,
                          cols[3, j] * LF.RINV_INT % F.P))
@@ -1144,7 +1322,8 @@ def phase_bls_kernels(torch, hw: dict, sets, rand_fn) -> dict:
            "(384, 128)", chain=chain_products(PK, "finalize"))
     print(f"BLS kernels vs plain on the card: raw limbs equal {errs} (Miller+"
           f"fold also all-dead and with only lanes j + 128 live); finalize "
-          f"verdicts exact; 4 hash columns match the host hash_to_g2")
+          f"verdicts exact; 4 hash columns match the host hash_to_g2 "
+          f"(pure Python)")
     return {"errs": errs, "timing": timing,
             "groups": group_configs(torch, PK, hw),
             "racecheck": racecheck_group_kernels(hw)}
@@ -1190,6 +1369,12 @@ def phase_bls_verify(torch, hw: dict, sets, rand_fn, kernel_ms) -> dict:
         sets, rand_fn=rand_fn))[1] for _ in range(VERIFY_RUNS)]
     print(f"verify wall ms {[round(w, 1) for w in walls]} median "
           f"{statistics.median(walls):.1f} [{hw['card']}]")
+    agg_ms = TB.LAST_FAST_AGG_TIMINGS.get("aggregate_keys_ms")
+    check(agg_ms is not None, "the shared path summed no keys")
+    from lighthouse_tpu_torch.crypto import native
+    check(native.ready(), "the key sum did not have the native library")
+    print(f"aggregate_keys_ms {agg_ms:.3f} (native g1_aggregate of "
+          f"{BLS_KEYS} keys, last warm call) [{hw['card']}]")
     stages = fenced_stages(TB, TB.LAST_FAST_AGG_TIMINGS, lambda:
                            backend.verify_signature_sets(sets,
                                                          rand_fn=rand_fn))
@@ -1200,7 +1385,7 @@ def phase_bls_verify(torch, hw: dict, sets, rand_fn, kernel_ms) -> dict:
                         backend.verify_signature_sets(sets, rand_fn=rand_fn),
                         kernel_ms)
     return {"launches": launches, "wall_ms": walls, "stages": stages,
-            "profile": prof}
+            "profile": prof, "aggregate_keys_ms": agg_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1955,24 +2140,38 @@ def phase_block_verify(torch, hw: dict, block, rand_fn) -> dict:
                for k, v in stages.items()}) + f" [{hw['card']}]")
 
     att = sets[0]
-    check(backend.verify(att.signature, att.signing_keys, att.message)
-          is True, "verify of one attestation aggregate failed")
-    check(backend.verify(att.signature, att.signing_keys,
-                         att.message + b"!") is False,
-          "verify of an altered message passed")
     signers = [int(v) for v in np.arange(4) * 1000 + 3 + GEN_SETS * GEN_KEYS]
     msgs = [b"aggregate-verify-%d" % i for i in range(4)]
     agg = None
     for v, m in zip(signers, msgs):
-        agg = C.g2_add(agg, C.g2_mul(H2C.hash_to_g2(m), sk[v] % R))
+        agg = C.g2_add(agg, C.g2_mul(H2C.hash_to_g2_python(m), sk[v] % R))
     keys = [pks[v] for v in signers]
-    check(backend.aggregate_verify(bls.Signature(agg), keys, msgs) is True,
-          "aggregate_verify of 4 signers failed")
-    check(backend.aggregate_verify(bls.Signature(agg), keys,
-                                   msgs[1:] + msgs[:1]) is False,
-          "aggregate_verify with the messages rotated passed")
+    # both routes: the device pipeline (fast path off) and the native host
+    # fast path (the default takes batches of up to 4 sets)
+    for route, knob in (("device", "0"), ("host", None)):
+        if knob is None:
+            os.environ.pop("LIGHTHOUSE_TPU_HOST_FASTPATH_MAX", None)
+        else:
+            os.environ["LIGHTHOUSE_TPU_HOST_FASTPATH_MAX"] = knob
+        zero_launches(HK.LAUNCHES, PK.LAUNCHES)
+        check(backend.verify(att.signature, att.signing_keys, att.message)
+              is True, f"verify of one attestation aggregate failed "
+                       f"({route})")
+        check(backend.verify(att.signature, att.signing_keys,
+                             att.message + b"!") is False,
+              f"verify of an altered message passed ({route})")
+        check(backend.aggregate_verify(bls.Signature(agg), keys, msgs)
+              is True, f"aggregate_verify of 4 signers failed ({route})")
+        check(backend.aggregate_verify(bls.Signature(agg), keys,
+                                       msgs[1:] + msgs[:1]) is False,
+              f"aggregate_verify with the messages rotated passed ({route})")
+        launched = sum(HK.LAUNCHES.values()) + sum(PK.LAUNCHES.values())
+        check((launched > 0) == (route == "device"),
+              f"{route} route launched {launched} BLS kernels")
+    os.environ.pop("LIGHTHOUSE_TPU_HOST_FASTPATH_MAX", None)
     print("verify: valid True, altered message False; aggregate_verify "
-          "(4 signers): valid True, messages rotated False")
+          "(4 signers): valid True, messages rotated False; on the device "
+          "route and on the host fast path (no kernel launched)")
     return {"launches": launches, "ms": ms, "warm": warm, "stages": stages,
             "miller_err": miller_err, "prepare_err": prepare_err,
             "prepare_block": prepare_block}
@@ -2032,6 +2231,156 @@ def phase_profiles(torch, hw: dict) -> dict:
     return {"stages": prof, "chain": chain,
             "launches": {"miller": stage_launches["miller"],
                          "product": chain_launches["product"]}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the host/device crossover of small batches
+# ---------------------------------------------------------------------------
+
+def phase_crossover(torch, hw: dict, sets, rand_fn) -> dict:
+    """1, 2, 4, 8 and 16 sets of BASELINE row 1's shape (16 keys each,
+    keys already in the pubkey table) through ``verify_signature_sets``,
+    the median of 5 warm calls with ``LIGHTHOUSE_TPU_HOST_FASTPATH_MAX`` at
+    16 (the native host pairing) and at 0 (the device pipeline).  The host
+    calls must launch no kernel."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.ops import merkle_kernel as mk
+
+    backend = bls.get_backend()
+    table = {}
+    try:
+        for n in CROSSOVER_SETS:
+            batch = sets[:n]
+            row = {}
+            for route, knob in (("host", "16"), ("device", "0")):
+                os.environ["LIGHTHOUSE_TPU_HOST_FASTPATH_MAX"] = knob
+                check(backend.verify_signature_sets(batch, rand_fn=rand_fn)
+                      is True, f"{n} sets did not verify ({route})")
+                zero_launches(HK.LAUNCHES, PK.LAUNCHES, mk.LAUNCHES)
+                walls = [timed(torch, lambda: backend.verify_signature_sets(
+                    batch, rand_fn=rand_fn))[1] for _ in range(VERIFY_RUNS)]
+                launched = sum(HK.LAUNCHES.values()) + sum(
+                    PK.LAUNCHES.values()) + sum(mk.LAUNCHES.values())
+                if route == "host":
+                    check(launched == 0, f"the host fast path launched "
+                                         f"{launched} kernels at {n} sets")
+                else:
+                    check(launched > 0, f"the device path launched no "
+                                        f"kernel at {n} sets")
+                row[f"{route}_ms"] = statistics.median(walls)
+                row[f"{route}_launches"] = launched
+            bad = list(batch)
+            bad[-1] = bls.SignatureSet(batch[-1].signature,
+                                       batch[-1].signing_keys,
+                                       batch[-1].message + b"!")
+            os.environ["LIGHTHOUSE_TPU_HOST_FASTPATH_MAX"] = "16"
+            check(backend.verify_signature_sets(bad, rand_fn=rand_fn)
+                  is False, f"a tampered batch of {n} verified (host)")
+            table[n] = row
+    finally:
+        os.environ.pop("LIGHTHOUSE_TPU_HOST_FASTPATH_MAX", None)
+    faster = [n for n, r in table.items() if r["host_ms"] < r["device_ms"]]
+    print("host/device crossover, 16-key sets, median of "
+          f"{VERIFY_RUNS} warm calls (ms): " + json.dumps(
+              {n: {k: round(v, 3) for k, v in r.items()}
+               for n, r in table.items()}) + f"; the host is faster at "
+          f"{faster} sets; host calls launched no kernel [{hw['card']}]")
+    return table
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the Merkle proof engine on the resident registry tree
+# ---------------------------------------------------------------------------
+
+def phase_proof_engine(torch, hw: dict, state) -> dict:
+    """1024 random validator branches of the 2^20 registry mirror's
+    record-root tree in one gather, against a hashlib walk (record roots
+    of the sampled validators from their raw columns, every level above
+    from the resident record-root plane) and ``verify_merkle_proof``; the
+    gather's device→host bytes against 32 × distinct nodes; then
+    ``ProofServer.field_branch`` for every field of the state against a
+    hashlib fold of the field roots to the state root."""
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
+    from lighthouse_tpu_torch.ops.merkle_proof import verify_merkle_proof
+    from lighthouse_tpu_torch.ops.proof_engine import (DeviceProofEngine,
+                                                      ProofServer,
+                                                      branch_gindices)
+    from lighthouse_tpu_torch.types import MAINNET
+
+    reg = state.validators
+    state_root = state.tree_hash_root()       # lands any pending dirt
+    tree = reg._dev_mirror.tree
+    depth, n = len(tree.levels) - 1, len(reg)
+    rng = np.random.default_rng(SEED + 7)
+    idx = np.sort(rng.choice(n, PROOF_BATCH, replace=False))
+    gs = [(1 << depth) + int(i) for i in idx]
+    distinct = len(set().union(*(branch_gindices(g) for g in gs)))
+    eng = DeviceProofEngine(tree)
+    eng.branches(gs)
+    times, moved = [], []
+    for _ in range(VERIFY_RUNS):
+        before = LEDGER.transfer_totals()["proof_engine"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        branches = eng.branches(gs)
+        times.append((time.perf_counter() - t0) * 1e3)
+        after = LEDGER.transfer_totals()["proof_engine"]
+        moved.append((after[0] - before[0], after[1] - before[1]))
+    check(all(d2h == 32 * distinct for _h2d, d2h in moved),
+          f"proof gather D2H {moved} != 32 B × {distinct} distinct nodes")
+
+    t0 = time.perf_counter()
+    plane = tree.levels[0].cpu().numpy().view(np.uint32).astype(
+        ">u4").view(np.uint8)
+    plane = plane.reshape(-1, 32)
+    check(np.array_equal(plane[idx], record_roots_hashlib(reg, idx)),
+          "resident record roots != hashlib record roots")
+    host = tree_levels_hashlib(plane)
+    root = host[-1][0].tobytes()
+    check(zero_cap_hashlib(root, depth, MAINNET.VALIDATOR_REGISTRY_LIMIT, n)
+          == type(state).FIELDS["validators"].hash_tree_root(reg),
+          "hashlib registry tree root != the registry's hash_tree_root")
+    for g, i in zip(gs, idx):
+        want = [host[lv][(int(i) >> lv) ^ 1].tobytes() for lv in range(depth)]
+        check(branches[g] == want, f"branch of validator {i} != hashlib walk")
+        check(verify_merkle_proof(plane[i].tobytes(), branches[g], depth,
+                                  int(i), root),
+              f"branch of validator {i} does not verify")
+    walk_s = time.perf_counter() - t0
+
+    server = ProofServer(window_ms=0)
+    names = list(type(state).FIELDS)
+    field_roots = [type(state).FIELDS[f].hash_tree_root(getattr(state, f))
+                   for f in names]
+    w = 1 << (len(names) - 1).bit_length()
+    leaves = np.zeros((w, 32), np.uint8)
+    leaves[:len(names)] = np.frombuffer(b"".join(field_roots),
+                                        np.uint8).reshape(-1, 32)
+    flevels = tree_levels_hashlib(leaves)
+    check(flevels[-1][0].tobytes() == state_root,
+          "hashlib fold of the field roots != the state root")
+    t0 = time.perf_counter()
+    for k, name in enumerate(names):
+        branch, at = server.field_branch(state, name)
+        check(at == k and branch == [flevels[lv][(k >> lv) ^ 1].tobytes()
+                                     for lv in range(len(flevels) - 1)],
+              f"field_branch({name}) != hashlib walk")
+        check(verify_merkle_proof(field_roots[k], branch, len(flevels) - 1,
+                                  k, state_root),
+              f"field_branch({name}) does not verify")
+    field_ms = (time.perf_counter() - t0) * 1e3
+    print(f"proof engine: {PROOF_BATCH} validator branches of the 2^{depth} "
+          f"registry tree in one gather, ms {[round(t, 3) for t in times]} "
+          f"(median {statistics.median(times):.3f}); {distinct} distinct "
+          f"nodes, D2H {moved[-1][1]} B = 32 × distinct, H2D {moved[-1][0]} "
+          f"B of indices; every branch == hashlib walk and verifies "
+          f"(hashlib check {walk_s:.1f} s); field_branch of all "
+          f"{len(names)} fields == hashlib, {field_ms:.1f} ms; server "
+          f"{server.stats()} [{hw['card']}]")
+    return {"batch_ms": times, "distinct": distinct, "d2h": moved[-1][1],
+            "h2d": moved[-1][0], "field_ms": field_ms}
 
 
 def main() -> None:
@@ -2096,6 +2445,10 @@ def main() -> None:
         **{k: t["ms"] for k, t in gk["timing"].items()}})
     blk = phase_block_verify(torch, hw, block, grand)
     pf = phase_profiles(torch, hw)
+    phase_crossover(torch, hw, gsets, grand)
+    phase_proof_engine(torch, hw, state.pop("state"))
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
+    print("device ledger: " + json.dumps(LEDGER.snapshot()))
 
     replaces = {"hash64": "lighthouse_tpu/ops/merkle_kernel.py:192",
                 "subtree": "lighthouse_tpu/ops/merkle_kernel.py:159",

@@ -2,8 +2,8 @@
 
 Same names, defaults and conventions as the JAX package's registry:
 booleans are true ∈ {1, true, yes, on}, false ∈ {0, false, no, off};
-integers parse as int and are clamped to the knob's minimum; an empty
-value means unset (the default); anything else raises.
+integers and floats parse as such and are clamped to the knob's minimum;
+an empty value means unset (the default); anything else raises.
 """
 
 from __future__ import annotations
@@ -13,8 +13,27 @@ import os
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
 
-# name → (default, doc[, minimum for int knobs])
+# name → (default, doc[, minimum for int and float knobs])
 KNOBS = {
+    "LIGHTHOUSE_TPU_NO_NATIVE": (
+        False, "Disable the native C++ BLS library; verify via device/python "
+               "fallbacks."),
+    "LIGHTHOUSE_TPU_HOST_FASTPATH_MAX": (
+        4, "Batches up to this many sets verify on the host native "
+           "pairing; 0 keeps everything on-device.", 0),
+    "LIGHTHOUSE_TPU_PUSH_CHUNK_ROWS": (
+        1 << 18, "H2D streaming chunk rows for big column pushes (leaf "
+                 "builds default 2^18, registry builds 2^17); <= 0 disables "
+                 "chunking.", None),
+    "LIGHTHOUSE_TPU_PROOF_DEVICE": (
+        True, "Serve Merkle proofs by device gather from the resident field "
+              "tree (0 = host-walk oracle path)."),
+    "LIGHTHOUSE_TPU_PROOF_WINDOW_MS": (
+        2.0, "Proof-server micro-batching window: concurrent requests "
+             "arriving within it coalesce into one device gather.", 0.0),
+    "LIGHTHOUSE_TPU_PROOF_MAX_BATCH": (
+        1024, "Distinct gindices that dispatch a proof batch early, before "
+              "the window closes.", 1),
     "LIGHTHOUSE_TPU_DEVICE_STATE": (
         True, "Device-resident BeaconState: device memory is the hashing "
               "source of truth (0 = host incremental oracle)."),
@@ -32,10 +51,8 @@ class KnobError(ValueError):
 
 
 def knob_bool(name: str) -> bool:
-    if name not in KNOBS:
-        raise KnobError(f"undeclared knob {name!r}")
-    raw = os.environ.get(name)
-    if raw is None or raw.strip() == "":
+    raw = _raw(name)
+    if raw is None:
         return bool(KNOBS[name][0])
     v = raw.strip().lower()
     if v in _TRUE:
@@ -46,12 +63,26 @@ def knob_bool(name: str) -> bool:
                     f"{_TRUE + _FALSE} (or unset for the default)")
 
 
-def knob_int(name: str) -> int:
+def _raw(name: str):
     if name not in KNOBS:
         raise KnobError(f"undeclared knob {name!r}")
-    default, _doc, minimum = KNOBS[name]
     raw = os.environ.get(name)
-    if raw is None or raw.strip() == "":
+    return None if raw is None or raw.strip() == "" else raw
+
+
+def _clamp(name: str, value):
+    minimum = KNOBS[name][2]
+    return value if minimum is None else max(value, minimum)
+
+
+def knob_int(name: str, default: int | None = None) -> int:
+    """Integer knob, clamped to its minimum.  ``default`` overrides the
+    registry default for sites with their own (the two
+    ``PUSH_CHUNK_ROWS`` builders)."""
+    raw = _raw(name)
+    if default is None:
+        default = KNOBS[name][0]
+    if raw is None:
         return int(default)
     try:
         value = int(raw.strip())
@@ -59,4 +90,19 @@ def knob_int(name: str) -> int:
         raise KnobError(f"{name}={raw!r}: expected an integer (default "
                         f"{default}); unset the variable to use the "
                         f"default") from None
-    return max(value, minimum)
+    return int(_clamp(name, value))
+
+
+def knob_float(name: str, default: float | None = None) -> float:
+    raw = _raw(name)
+    if default is None:
+        default = KNOBS[name][0]
+    if raw is None:
+        return float(default)
+    try:
+        value = float(raw.strip())
+    except ValueError:
+        raise KnobError(f"{name}={raw!r}: expected a number (default "
+                        f"{default}); unset the variable to use the "
+                        f"default") from None
+    return float(_clamp(name, value))

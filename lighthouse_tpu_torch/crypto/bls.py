@@ -19,9 +19,12 @@ Backends:
   selects it with ``set_backend("python")``.
 - ``fake``   — always-true verification for logic tests.
 
-The port has no native host library: every host group operation
-(``aggregate_points``, signing, the python backend's pairing) is pure
-Python, as the JAX package behaves under ``LIGHTHOUSE_TPU_NO_NATIVE=1``.
+Host group operations go through the native library (:mod:`.native`,
+built with g++ from ``native/bls381.cpp``) once it is built, as in the JAX
+package: key sums of 16 points or more, signing's G2 multiplication, and
+the python backend's hash-to-curve and pairing.  Until the background
+build lands, and under ``LIGHTHOUSE_TPU_NO_NATIVE=1``, they run in pure
+Python.
 """
 
 from __future__ import annotations
@@ -59,6 +62,16 @@ def _g1_point_checked(data: bytes):
     if not C.g1_subgroup_check(point):
         raise BlsError("public key not in the G1 subgroup")
     return point
+
+
+def _g2_mul_fast(point, scalar: int):
+    """[scalar]P through the native 256-bit ladder when it is built
+    (signing and the RLC scalars), else the curve oracle."""
+    from . import native
+
+    if point is not None and 0 <= scalar < (1 << 256) and native.ready():
+        return native.g2_mul(point, scalar)
+    return C.g2_mul(point, scalar)
 
 
 @lru_cache(maxsize=1 << 16)
@@ -100,7 +113,7 @@ class SecretKey:
         return PublicKey(C.g1_mul(C.G1_GEN, self.scalar))
 
     def sign(self, message: bytes) -> "Signature":
-        return Signature(C.g2_mul(hash_to_g2(message), self.scalar))
+        return Signature(_g2_mul_fast(hash_to_g2(message), self.scalar))
 
 
 @dataclass(frozen=True)
@@ -122,7 +135,12 @@ class PublicKey:
 
 
 def aggregate_points(points):
-    """G1 sum of pre-validated pubkey POINTS (pure-Python affine adds)."""
+    """G1 sum of pre-validated pubkey POINTS: the native Jacobian
+    accumulator for 16 points or more once it is built (the shared
+    path's 512-key sum), else pure-Python affine additions."""
+    from . import native
+    if len(points) >= 16 and native.ready():
+        return native.g1_aggregate(list(points))
     acc = None
     for p in points:
         acc = C.g1_add(acc, p)
@@ -206,7 +224,7 @@ class PythonBackend:
             agg_pk = aggregate_public_keys(s.signing_keys)
             if agg_pk is None:
                 return False
-            sig_acc = C.g2_add(sig_acc, C.g2_mul(s.signature.point, c))
+            sig_acc = C.g2_add(sig_acc, _g2_mul_fast(s.signature.point, c))
             pairs.append((C.g1_mul(agg_pk, c), hash_to_g2(s.message)))
         if sig_acc is None:
             return False

@@ -321,11 +321,24 @@ def sqrt_or_z_times(alpha):
 
 # --- full hash-to-curve ----------------------------------------------------
 
-def hash_to_g2(msg: bytes, dst: bytes = DST_G2) -> tuple:
-    """RFC 9380 hash_to_curve (random-oracle variant) onto G2, in pure
-    Python: expand_message_xmd + hash_to_field, SSWU, the 3-isogeny, the
-    point add and Budroni–Pintore cofactor clearing."""
+def hash_to_g2_python(msg: bytes, dst: bytes = DST_G2) -> tuple:
+    """RFC 9380 hash_to_curve onto G2 in pure Python:
+    expand_message_xmd + hash_to_field, SSWU, the 3-isogeny, the point add
+    and Budroni–Pintore cofactor clearing (the independent oracle)."""
     u0, u1 = hash_to_field_fq2(msg, 2, dst)
     q0 = iso_map(map_to_curve_sswu(u0))
     q1 = iso_map(map_to_curve_sswu(u1))
     return clear_cofactor(C.g2_add(q0, q1))
+
+
+def hash_to_g2(msg: bytes, dst: bytes = DST_G2) -> tuple:
+    """RFC 9380 hash_to_curve (random-oracle variant) onto G2.  The field
+    half runs here; the curve half goes through the native library once it
+    is built, else :func:`hash_to_g2_python`'s (both pinned to the RFC
+    vectors in the tests).  ``LIGHTHOUSE_TPU_NO_NATIVE=1`` forces Python."""
+    from . import native
+
+    if native.ready():
+        u0, u1 = hash_to_field_fq2(msg, 2, dst)
+        return native.hash_to_g2_u(u0, u1)
+    return hash_to_g2_python(msg, dst)

@@ -168,8 +168,15 @@ def multi_pairing(pairs: Iterable[Tuple[Optional[tuple], Optional[tuple]]]) -> t
 
 def multi_pairing_is_one(
         pairs: Iterable[Tuple[Optional[tuple], Optional[tuple]]]) -> bool:
-    """prod_i e(p_i, q_i) == 1 — the verification predicate, in pure
-    Python (the port has no native host pairing); identity pairs are
-    dropped (e(P, O) = 1)."""
+    """prod_i e(p_i, q_i) == 1 — the verification predicate.  Identity
+    pairs are dropped (e(P, O) = 1); the rest go through the native C++
+    pairing once it is built, else the pure-Python one
+    (``LIGHTHOUSE_TPU_NO_NATIVE=1`` forces Python)."""
+    from . import native
+
     live = [(p, q) for p, q in pairs if p is not None and q is not None]
+    if native.ready():
+        if not live:
+            return True
+        return native.multi_pairing_is_one(live)
     return multi_pairing(live) == F.FQ12_ONE

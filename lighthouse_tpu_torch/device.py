@@ -1,4 +1,4 @@
-"""The port's one device choice, and its transfer byte counters.
+"""The port's one device choice, and its host↔device copies.
 
 Every entry point of :mod:`lighthouse_tpu_torch` places its tensors on
 :func:`get_device`.  The default is ``cuda``; the CPU runs only when a
@@ -11,22 +11,30 @@ The size thresholds that send small trees to host hashlib
 DEVICE_BUILD_THRESHOLD``, ``types.state_cache.DEVICE_COLD_MIN``) are part
 of the design, not a fallback; :func:`on_cuda` is what they consult.
 
-Host↔device copies go through :func:`to_device` / :func:`to_host`, which
-add the bytes moved to a per-module counter from
-:func:`transfer_counter`.  The bytes are counted on the CPU device too,
-where the copy stays in host memory, so tests can hold the warm-root
-traffic to its dirty-row bound.
+Host↔device copies go through :func:`to_device`, :func:`to_device_async`
+and :func:`to_host`, which report the bytes moved to the device ledger
+(:data:`..common.device_ledger.LEDGER`) under the caller's subsystem: the
+one named, else the ambient attribution of the calling thread, else
+``device_tree``.  The ledger is the only store of these bytes;
+:func:`transfer_totals` is a view of it.  The bytes are counted on the
+CPU device too, where the copy stays in host memory, so tests can hold
+the warm-root traffic to its dirty-row bound.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
+from .common.device_ledger import LEDGER, SUBSYSTEMS
+
 _default = torch.device("cuda")
 
-# name → {"h2d": bytes, "d2h": bytes}; one entry per module that copies.
-_COUNTERS: dict[str, dict] = {}
+# The ledger's mark at the last reset_transfer_counters() (the view
+# re-bases; the ledger itself only grows).
+_MARK: Optional[tuple] = None
 
 # Host dtypes whose device form is a same-width signed view: torch keeps
 # u32 words in int32 and u64 values in int64 (bit patterns unchanged).
@@ -67,34 +75,35 @@ def get_device() -> torch.device:
     return _default
 
 
-def transfer_counter(name: str) -> dict:
-    """The byte counter of one module (created on first use)."""
-    return _COUNTERS.setdefault(name, {"h2d": 0, "d2h": 0})
-
-
 def transfer_totals() -> dict:
-    """Bytes copied host→device and device→host, summed over modules."""
-    return {k: sum(c[k] for c in _COUNTERS.values()) for k in ("h2d", "d2h")}
+    """Bytes copied host→device and device→host over every subsystem since
+    the last :func:`reset_transfer_counters`, or since the last
+    ``LEDGER.reset()`` where that came later (a view of the ledger)."""
+    t = LEDGER.since(_MARK, SUBSYSTEMS)
+    return {"h2d": int(t["h2d_bytes"]), "d2h": int(t["d2h_bytes"])}
 
 
 def reset_transfer_counters() -> None:
-    for c in _COUNTERS.values():
-        c["h2d"] = c["d2h"] = 0
+    """Re-base :func:`transfer_totals` at the ledger's current totals."""
+    global _MARK
+    _MARK = LEDGER.mark(SUBSYSTEMS)
 
 
-def to_device(arr, counter: dict) -> torch.Tensor:
+def to_device(arr, subsystem: Optional[str] = None) -> torch.Tensor:
     """Copy a host array to :func:`get_device` (always a copy: the port
     updates device buffers in place, which must never reach the caller's
-    array).  u32/u64 arrays arrive as int32/int64 bit patterns."""
+    array).  u32/u64 arrays arrive as int32/int64 bit patterns; the bytes
+    are noted to the ledger under ``subsystem``."""
+    dev = get_device()
     arr = np.ascontiguousarray(arr)
     view = _SIGNED_VIEW.get(arr.dtype)
     if view is not None:
         arr = arr.view(view)
-    counter["h2d"] += arr.nbytes
-    return torch.from_numpy(arr).to(get_device(), copy=True)
+    LEDGER.note_transfer("h2d", arr.nbytes, subsystem)
+    return torch.from_numpy(arr).to(dev, copy=True)
 
 
-def to_device_async(arr, counter: dict) -> torch.Tensor:
+def to_device_async(arr, subsystem: Optional[str] = None) -> torch.Tensor:
     """Like :func:`to_device`, without waiting on a GPU: the array is
     copied into pinned host memory and from there to the device with
     ``non_blocking=True`` on the current stream (PyTorch's pinned-memory
@@ -102,19 +111,19 @@ def to_device_async(arr, counter: dict) -> torch.Tensor:
     CPU device it is :func:`to_device`."""
     dev = get_device()
     if dev.type != "cuda":
-        return to_device(arr, counter)
+        return to_device(arr, subsystem)
     arr = np.ascontiguousarray(arr)
     view = _SIGNED_VIEW.get(arr.dtype)
     if view is not None:
         arr = arr.view(view)
-    counter["h2d"] += arr.nbytes
+    LEDGER.note_transfer("h2d", arr.nbytes, subsystem)
     return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
 
 
-def to_host(t: torch.Tensor, counter: dict) -> np.ndarray:
+def to_host(t: torch.Tensor, subsystem: Optional[str] = None) -> np.ndarray:
     """Copy a device tensor to a fresh host array; int32/int64 come back
     as the u32/u64 bit patterns they hold."""
     out = t.detach().to("cpu", copy=True).numpy()
-    counter["d2h"] += out.nbytes
+    LEDGER.note_transfer("d2h", out.nbytes, subsystem)
     view = _UNSIGNED_VIEW.get(out.dtype)
     return out.view(view) if view is not None else out

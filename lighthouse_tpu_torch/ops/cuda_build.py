@@ -11,7 +11,8 @@ The file name carries a hash of the source and of the headers it
 includes, so an edited kernel never loads a stale build, and an edited
 header rebuilds only the sources that include it.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
-all of them.  Nothing here runs at import time: this module is imported
+all of them.  Each build that runs is a ``compiles`` event of the device
+ledger, each finished build that loads a ``compile_hits`` event.  Nothing here runs at import time: this module is imported
 on machines with no ``nvcc`` and no GPU, where only the plain versions of
 the kernels run.
 """
@@ -26,6 +27,8 @@ import shutil
 import subprocess
 import time
 
+from ..common.device_ledger import LEDGER
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -35,6 +38,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # name → (loaded CDLL, .so path, seconds the build took, ptxas report)
 _LOADED: dict[str, tuple] = {}
+
+# The ledger subsystem each library's builds are charged to.
+_SUBSYSTEM = {"sha256_merkle": "device_tree", "bls381": "bls",
+              "bls381_phases": "bls"}
 
 
 def _nvcc() -> str:
@@ -105,6 +112,7 @@ def build_all(names) -> dict[str, tuple[float, str]]:
             continue
         os.replace(tmp, out)
         built[name] = (took, stdout + stderr)
+        LEDGER.note_compile(_SUBSYSTEM.get(name))
     if failed:
         raise RuntimeError("\n".join(failed))
     return built
@@ -125,6 +133,8 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     if got is not None:
         return got[0]
     path, took, report = build(name)
+    if not took:
+        LEDGER.note_compile(_SUBSYSTEM.get(name), key="compile_hits")
     lib = ctypes.CDLL(path)
     for entry, argtypes in signatures.items():
         fn = getattr(lib, entry)

@@ -21,6 +21,14 @@ Dirty-index batches are padded to power-of-two buckets (:func:`pad_bucket`)
 so the launch shapes of the warm path stay logarithmic in the update size;
 padding duplicates a real (index, row) pair, which is idempotent under
 both the scatter and the re-hash.
+
+**Accounting.**  Every copy reports to the device ledger
+(:data:`..common.device_ledger.LEDGER`) under the caller's ambient
+attribution (``device_tree`` when no seam set one), each tree keeps a
+:class:`~..common.device_ledger.ResidencyToken` of its levels' bytes, and
+materializations, scatters and rebuilds are ledger events.
+:func:`residency_snapshot` is the JAX package's legacy residency
+surface, as a view of the ledger over its historical feeders.
 """
 
 from __future__ import annotations
@@ -28,11 +36,41 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import to_device, to_host, transfer_counter
+from ..common.device_ledger import LEDGER
+from ..device import to_device, to_host
 from .merkle import _next_pow2
 from .merkle_kernel import hash64_kernel, tree_levels
 
-TRANSFERS = transfer_counter("ops.device_tree")
+# The legacy residency view's feeder set (the JAX package's), and its keys
+# → ledger counters.
+LEGACY_RESIDENCY_SUBSYSTEMS = ("device_tree", "registry_mirror",
+                               "packed_cache", "fork_choice")
+_LEGACY_KEYS = {
+    "bytes_pushed": "h2d_bytes",
+    "bytes_pulled": "d2h_bytes",
+    "scatters": "scatters",
+    "rebuilds": "rebuilds",
+    "materializes": "materializes",
+}
+
+
+# The ledger's mark over the feeders at the last reset_residency_stats()
+# (the view re-bases; the ledger itself only grows).
+_RESIDENCY_MARK = [None]
+
+
+def reset_residency_stats() -> None:
+    _RESIDENCY_MARK[0] = LEDGER.mark(LEGACY_RESIDENCY_SUBSYSTEMS)
+
+
+def residency_snapshot() -> dict:
+    """The legacy residency counters (bytes pushed and pulled, scatters,
+    rebuilds, materializes) of the feeder subsystems since the last
+    :func:`reset_residency_stats`, or since the last ``LEDGER.reset()``
+    where that came later."""
+    t = LEDGER.since(_RESIDENCY_MARK[0], LEGACY_RESIDENCY_SUBSYSTEMS)
+    return {k: int(t[lk]) for k, lk in _LEGACY_KEYS.items()}
+
 
 # Smallest dirty-batch bucket (the JAX package's ``tree_dirty`` floor).
 BUCKET_FLOOR = 8
@@ -86,11 +124,26 @@ class DeviceTree:
     exactly like the host cache.
     """
 
-    __slots__ = ("levels", "shared")
+    __slots__ = ("levels", "shared", "_res", "__weakref__")
 
     def __init__(self, levels, shared: bool = False):
         self.levels = tuple(levels)
         self.shared = shared
+        # Residency token, created at the first accounting seam: a
+        # share() clone holds none (the parent owns the shared buffers)
+        # until its first write lands in buffers of its own.
+        self._res = None
+
+    def note_residency(self) -> None:
+        """Update this tree's resident byte contribution under the ambient
+        ledger attribution (creates the token and its GC drop seam on the
+        first call)."""
+        total = sum(lv.numel() * lv.element_size() for lv in self.levels)
+        if self._res is None:
+            self._res = LEDGER.track(
+                self, LEDGER.ambient() or "device_tree", total)
+        else:
+            self._res.set(total)
 
     # -- construction --------------------------------------------------------
 
@@ -101,7 +154,11 @@ class DeviceTree:
         this tree ever makes."""
         leaves = np.ascontiguousarray(leaves, dtype=np.uint32)
         assert leaves.shape[0] == _next_pow2(leaves.shape[0])
-        return cls(tree_levels(to_device(leaves, TRANSFERS)))
+        LEDGER.note_event("materializes")
+        tree = cls(tree_levels(to_device(leaves)))
+        tree.note_residency()
+        return tree
+
 
     # -- queries -------------------------------------------------------------
 
@@ -110,11 +167,11 @@ class DeviceTree:
         return self.levels[0].shape[0]
 
     def root_words(self) -> np.ndarray:
-        return to_host(self.levels[-1][0], TRANSFERS)
+        return to_host(self.levels[-1][0])
 
     def pull_levels(self) -> list:
         """Host copies of every level (de-materialization / oracle)."""
-        return [to_host(lv, TRANSFERS) for lv in self.levels]
+        return [to_host(lv) for lv in self.levels]
 
     # -- updates -------------------------------------------------------------
 
@@ -133,14 +190,17 @@ class DeviceTree:
             return self.root_words()
         pidx, prows = pad_bucket(np.asarray(idx),
                                  np.ascontiguousarray(rows, dtype=np.uint32))
-        return self.scatter_device(
-            to_device(pidx.astype(np.int64), TRANSFERS),
-            to_device(prows, TRANSFERS))
+        root = self.scatter_device(to_device(pidx.astype(np.int64)),
+                                   to_device(prows))
+        self.note_residency()
+        return root
 
     def scatter_device(self, idx_dev: torch.Tensor,
                        rows_dev: torch.Tensor) -> np.ndarray:
         """Scatter with (idx, rows) already on the device (registry mirror
-        path) — zero push here; the caller accounted its own."""
+        path) — zero push here; the caller accounts its own copies and
+        residency."""
+        LEDGER.note_event("scatters")
         self._own()
         scatter_propagate_body(self.levels, idx_dev, rows_dev)
         return self.root_words()
@@ -148,8 +208,10 @@ class DeviceTree:
     def rebuild_device(self, leaves: torch.Tensor) -> np.ndarray:
         """Replace every level from device-resident leaves (dirty fraction
         past the walk/rebuild crossover, or width growth) — zero push."""
+        LEDGER.note_event("rebuilds")
         self.levels = tree_levels(leaves)
         self.shared = False
+        self.note_residency()
         return self.root_words()
 
     # -- copy-on-write -------------------------------------------------------

@@ -18,7 +18,7 @@ import hashlib
 import numpy as np
 import torch
 
-from ..device import to_device, to_host, transfer_counter
+from ..device import to_device, to_host
 from .sha256 import bytes_to_words
 
 MAX_TREE_DEPTH = 64
@@ -30,7 +30,6 @@ for _ in range(MAX_TREE_DEPTH):
 ZERO_HASHES = np.stack([bytes_to_words(h) for h in _zh])  # (65, 8) uint32
 ZERO_HASHES_BYTES = list(_zh)
 
-TRANSFERS = transfer_counter("ops.merkle")
 
 
 def _next_pow2(n: int) -> int:
@@ -86,12 +85,12 @@ def merkleize(leaves, depth: int, base_level: int = 0) -> np.ndarray:
     assert base_level + (n - 1).bit_length() <= depth, \
         f"{n} nodes at level {base_level} overflow a depth-{depth} tree"
     level = (leaves if isinstance(leaves, torch.Tensor)
-             else to_device(np.asarray(leaves, dtype=np.uint32), TRANSFERS))
+             else to_device(np.asarray(leaves, dtype=np.uint32), "staging"))
     lvl = base_level
     while level.shape[0] > 1:
         level = hash64_kernel(level[0::2], level[1::2])
         lvl += 1
-    root = to_host(level[0], TRANSFERS)
+    root = to_host(level[0], "staging")
     while lvl < depth:
         root = hash64_host_words(root[None], ZERO_HASHES[lvl][None])[0]
         lvl += 1

@@ -24,11 +24,12 @@ bit-reversed leaf order and no 2^15-lane padding; any n is accepted.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
 
-from ..device import to_device, to_host, transfer_counter
+from ..device import to_device, to_host
 from .sha256 import hash64 as _hash64_torch
 
 # Leaves per chunk of the sub-tree kernel: 2^10 leaves = 512 threads and
@@ -39,7 +40,6 @@ CHUNK_LOG2 = 10
 MAX_CHUNK_LOG2 = 10
 
 LAUNCHES = {"hash64": 0, "subtree": 0}
-TRANSFERS = transfer_counter("ops.merkle_kernel")
 
 _LIB = "sha256_merkle"
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -165,13 +165,71 @@ def tree_levels(leaves: torch.Tensor) -> tuple:
     return tuple(levels)
 
 
-def merkle_levels_device(leaves: np.ndarray):
+# Host→device streaming granularity of big leaf pushes: 2^18 rows = 8 MiB
+# a chunk at (rows, 8) u32 (``LIGHTHOUSE_TPU_PUSH_CHUNK_ROWS``; 0 disables
+# chunking).
+PUSH_CHUNK_ROWS = 1 << 18
+
+# Accumulated stats of chunked builds since the last
+# :func:`reset_push_stats`: builds, chunks, staging fallbacks, the copy
+# time left on the critical path (wait_ms), the background copy time
+# (transfer_ms), the copy time hidden behind device work (overlap_ms) and
+# the wall time of the builds.
+LAST_PUSH_STATS: dict = {}
+
+
+def reset_push_stats() -> None:
+    LAST_PUSH_STATS.clear()
+
+
+def _push_chunk_rows() -> int:
+    """The knob, rounded DOWN to a power of two so it divides the
+    (power-of-two) leaf widths; ≤ 0 disables chunking."""
+    from ..common.knobs import knob_int
+    rows = knob_int("LIGHTHOUSE_TPU_PUSH_CHUNK_ROWS",
+                    default=PUSH_CHUNK_ROWS)
+    return 1 << (rows.bit_length() - 1) if rows > 0 else 0
+
+
+def merkle_levels_device(leaves: np.ndarray, chunk_rows: int | None = None):
     """Every tree level of host ``(w, 8)`` u32 leaves, computed on the
     device: returns ``(root_words, device_levels)`` with the ``(8,)`` root
-    pulled to the host and the levels left on the device."""
-    dev = to_device(np.asarray(leaves, dtype=np.uint32), TRANSFERS)
-    levels = tree_levels(dev)
-    return to_host(levels[-1][0], TRANSFERS), levels
+    pulled to the host and the levels left on the device.
+
+    Wide builds stream the leaves in ``chunk_rows``-row chunks through a
+    :class:`~..parallel.pipeline.ChunkStager`: chunk i+1 copies while
+    chunk i's sub-tree levels are hashed on the device.  A contiguous
+    chunk is exactly a sub-tree, so level l of the full tree is the
+    in-order concatenation of the chunks' level l — the same levels the
+    one-copy build gives — and the chunk roots reduce to the top as a
+    small tree of their own."""
+    leaves = np.ascontiguousarray(leaves).astype(np.uint32, copy=False)
+    w = leaves.shape[0]
+    chunk = _push_chunk_rows() if chunk_rows is None else chunk_rows
+    if chunk <= 0 or w <= chunk or w % chunk:
+        levels = tree_levels(to_device(leaves, "staging"))
+        return to_host(levels[-1][0], "staging"), levels
+
+    from ..parallel.pipeline import ChunkStager
+
+    t0 = time.perf_counter()
+    n_chunks = w // chunk
+    stager = ChunkStager([leaves[i * chunk:(i + 1) * chunk]
+                          for i in range(n_chunks)])
+    parts = [tree_levels(dev) for dev in stager]
+    levels = [torch.cat([p[lv] for p in parts], 0)
+              for lv in range(len(parts[0]))]
+    levels.extend(tree_levels(levels[-1])[1:])
+    root = to_host(levels[-1][0], "staging")
+    for key, add in (
+            ("builds", 1), ("chunks", n_chunks),
+            ("staging_fallbacks", stager.fallbacks),
+            ("wait_ms", stager.wait_s * 1e3),
+            ("transfer_ms", stager.transfer_s * 1e3),
+            ("overlap_ms", max(stager.transfer_s - stager.wait_s, 0.0) * 1e3),
+            ("wall_ms", (time.perf_counter() - t0) * 1e3)):
+        LAST_PUSH_STATS[key] = LAST_PUSH_STATS.get(key, 0) + add
+    return root, tuple(levels)
 
 
 def merkle_root_chunked(leaves, depth: int,
@@ -198,7 +256,7 @@ def merkle_root_chunked(leaves, depth: int,
     if (n - 1).bit_length() > depth:
         raise ValueError(f"{n} leaves overflow a depth-{depth} tree")
     dev = (leaves if isinstance(leaves, torch.Tensor)
-           else to_device(np.asarray(leaves, dtype=np.uint32), TRANSFERS))
-    roots = to_host(chunk_roots_natural(dev, chunk_log2), TRANSFERS)
+           else to_device(np.asarray(leaves, dtype=np.uint32), "staging"))
+    roots = to_host(chunk_roots_natural(dev, chunk_log2), "staging")
     return merkleize_auto(roots, depth, base_level=chunk_log2)
 

@@ -28,7 +28,7 @@ import hashlib
 
 import numpy as np
 
-from ..device import on_cuda, to_host, transfer_counter
+from ..device import on_cuda, to_host
 from .merkle import (ZERO_HASHES_BYTES, _next_pow2, hash64_host_words,
                      mix_in_length_host)
 from .sha256 import words_to_bytes
@@ -36,8 +36,6 @@ from .sha256 import words_to_bytes
 # Instrumentation: number of 64-byte hash compressions performed by caches
 # (host + device), for O(changes·log n) assertions in tests.
 HASH_COUNT = [0]
-
-TRANSFERS = transfer_counter("ops.tree_cache")
 
 
 def _h64_host(left: np.ndarray, right: np.ndarray) -> np.ndarray:
@@ -91,7 +89,7 @@ class IncrementalMerkleCache:
 
             HASH_COUNT[0] += w - 1
             root, dev_levels = merkle_levels_device(leaves)
-            self.levels = [to_host(lv, TRANSFERS) for lv in dev_levels]
+            self.levels = [to_host(lv, "staging") for lv in dev_levels]
             return root
         levels = [leaves]
         cur = leaves

@@ -30,10 +30,13 @@ The host incremental path remains the differential oracle:
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from ..device import on_cuda, to_device, to_host, transfer_counter
+from ..common.device_ledger import LEDGER
+from ..device import on_cuda, to_device, to_host
 from ..ops.device_tree import DeviceTree
 from ..ops.merkle import _next_pow2
 from ..ops.merkle_kernel import tree_levels
@@ -49,7 +52,10 @@ DEVICE_COLUMN_FIELDS = (
     "slashings",
 )
 
-TRANSFERS = transfer_counter("types.device_state")
+# The most recent materialize_state: its wall time and the bytes it
+# pushed to the legacy residency feeders (a ledger view).
+LAST_MATERIALIZE_STATS: dict = {}
+
 
 def device_state_enabled() -> bool:
     """Master knob: device-resident state unless
@@ -114,7 +120,8 @@ class DeviceColumn:
     # -- host/device plumbing ------------------------------------------------
 
     def _pull(self) -> None:
-        host = to_host(self._dev, TRANSFERS).view(_host_dtype(self._dev))
+        host = to_host(self._dev, "packed_cache").view(
+            _host_dtype(self._dev))
         object.__setattr__(self, "_host", host)
         object.__setattr__(self, "_stale", False)
 
@@ -328,7 +335,7 @@ class DevicePackedCache:
         paid only when host-side mutation resumes — which implies the host
         needed the values anyway)."""
         if self.src is None and self.src_dev is not None:
-            self.src = to_host(self.src_dev, TRANSFERS).view(
+            self.src = to_host(self.src_dev, "packed_cache").view(
                 _host_dtype(self.src_dev))
             self.src_dev = None
 
@@ -340,7 +347,7 @@ class DevicePackedCache:
         if self.tree is None:
             self.tree = DeviceTree.from_host_leaves(leaves)
         else:
-            self.tree.rebuild_device(to_device(leaves, TRANSFERS))
+            self.tree.rebuild_device(to_device(leaves))
         self.src = host.copy()
         self.src_dev = None
         return self.tree.root_words()
@@ -348,6 +355,12 @@ class DevicePackedCache:
     # -- the per-root entry point -------------------------------------------
 
     def root(self, col) -> bytes:
+        # Every copy and event under this root — the nested DeviceTree
+        # pushes included — is charged to the packed-column cache.
+        with LEDGER.attribute("packed_cache"):
+            return self._root_inner(col)
+
+    def _root_inner(self, col) -> bytes:
         if isinstance(col, DeviceColumn):
             state, payload = col.consume()
         else:  # untracked plain column (a path the interception missed)
@@ -363,11 +376,13 @@ class DevicePackedCache:
                     and self.tree.width == w):
                 return self._fold(self.tree.root_words(), w, n)
             levels = _repack_rebuild(payload, w)
+            LEDGER.note_event("rebuilds")
             if self.tree is None:
                 self.tree = DeviceTree(levels)
             else:
                 self.tree.levels = levels
                 self.tree.shared = False
+            self.tree.note_residency()
             self.src = None
             self.src_dev = payload
             return self._fold(self.tree.root_words(), w, n)
@@ -459,8 +474,16 @@ def materialize_state(state, force: bool = True) -> bool:
         return True
     if not force and not _auto_materialize(state):
         return False
+    from ..ops.device_tree import residency_snapshot
+    before = residency_snapshot()
+    t0 = time.perf_counter()
     state.__dict__["_device_resident"] = True
     state.tree_hash_root()
+    after = residency_snapshot()
+    LAST_MATERIALIZE_STATS.clear()
+    LAST_MATERIALIZE_STATS.update(
+        materialize_ms=(time.perf_counter() - t0) * 1e3,
+        bytes_pushed=after["bytes_pushed"] - before["bytes_pushed"])
     return True
 
 
@@ -486,5 +509,5 @@ def store_column(state, fname: str, arr, touched=None) -> None:
         cur.assign(arr, touched=touched)
         return
     if _is_device_tensor(arr):
-        arr = to_host(arr, TRANSFERS).view(_host_dtype(arr))
+        arr = to_host(arr, "packed_cache").view(_host_dtype(arr))
     setattr(state, fname, arr)

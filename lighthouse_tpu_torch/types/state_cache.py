@@ -34,7 +34,6 @@ from ..device import on_cuda, to_host
 from ..ops.merkle import merkleize_host
 from ..ops.tree_cache import (HASH_COUNT, IncrementalMerkleCache,
                               REBUILD_FRACTION)
-from .validators import TRANSFERS as _REG_TRANSFERS
 
 # Cold builds at/above this many records run on the GPU (below it the
 # host path costs ms anyway).  Kept at the JAX package's value for now.
@@ -71,7 +70,7 @@ class RegistryCache:
 
         self._snapshot(reg, n)
         root_words, levels = registry_cold_device(reg)
-        self.tree.levels = [to_host(lv, _REG_TRANSFERS) for lv in levels]
+        self.tree.levels = [to_host(lv, "staging") for lv in levels]
         return self._fold(root_words, len(levels) - 1, n)
 
     def _fold(self, root_words: np.ndarray, lvl: int, n: int) -> bytes:

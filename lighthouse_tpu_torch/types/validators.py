@@ -23,16 +23,17 @@ type; the registry converts at the boundary.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from ..device import to_device, to_host, transfer_counter
+from ..common.device_ledger import LEDGER
+from ..device import to_device, to_host
 from ..ssz.core import Bytes32, Bytes48, SszError
 from ..ssz.composite import Container
 from ..ssz import boolean, uint64
 from .chain_spec import FAR_FUTURE_EPOCH
-
-TRANSFERS = transfer_counter("types.validators")
 
 # Packed wire layout: 121 bytes per record, field order per the spec
 # container (``consensus/types/src/validator.rs``).
@@ -295,9 +296,9 @@ class ValidatorRegistry:
             return np.zeros((0, 8), dtype=np.uint32)
         HASH_COUNT[0] += 8 * k
         if k > HOST_DISPATCH_THRESHOLD:
-            rows = {name: to_device(arr, TRANSFERS)
+            rows = {name: to_device(arr, "staging")
                     for name, arr in _registry_raw_rows(self, sel).items()}
-            return to_host(_record_roots_body(rows), TRANSFERS)
+            return to_host(_record_roots_body(rows), "staging")
         h64 = hash64_host_words
         pk = self._pubkey[sel]
         pk_hi = np.zeros((k, 32), dtype=np.uint8)
@@ -428,28 +429,101 @@ def _record_roots_body(cols: dict) -> torch.Tensor:
     return cur                                # (m, 8) record roots
 
 
-def _mirror_levels(cols: dict, n: int) -> tuple:
-    """Every record-tree level from the device columns: record roots of
-    the first ``n`` rows, rows at or beyond ``n`` zeroed to zero CHUNKS
-    (SSZ list padding), then one ``hash64`` launch per level."""
+def _levels_from_records(rec: torch.Tensor, n: int) -> tuple:
+    """Registry levels over record roots: rows at or beyond ``n`` zeroed
+    to zero CHUNKS (SSZ list padding; the pad rows' record roots are not
+    zero chunks), then one ``hash64`` launch per level."""
     from ..ops.merkle_kernel import tree_levels
-    rec = _record_roots_body(cols)
     rec[n:] = 0
     return tree_levels(rec)
 
 
-def registry_cold_device(reg: "ValidatorRegistry"):
+def _mirror_levels(cols: dict, n: int) -> tuple:
+    """Every record-tree level from the device columns."""
+    return _levels_from_records(_record_roots_body(cols), n)
+
+
+# Host→device streaming granularity of the registry's cold builds: 2^17
+# records ≈ 15 MiB of raw columns a chunk.
+REG_PUSH_CHUNK_ROWS = 1 << 17
+
+# Stage timings of the most recent cold build or materialize (ms): the
+# copy time left on the critical path (``push_ms``), the rest
+# (``compute_ms``), the copy time hidden behind the earlier chunks'
+# hashing (``push_overlap_ms``), the background copy time
+# (``transfer_ms``), chunks and staging fallbacks.
+LAST_COLD_TIMINGS: dict = {}
+
+
+def _reg_chunk_rows() -> int:
+    """The shared knob in records (a registry row is ~2× the bytes of a
+    leaf row), rounded down to a power of two so it divides the registry
+    widths; ≤ 0 disables chunking."""
+    from ..common.knobs import knob_int
+    rows = knob_int("LIGHTHOUSE_TPU_PUSH_CHUNK_ROWS",
+                    default=REG_PUSH_CHUNK_ROWS)
+    return 1 << (rows.bit_length() - 1) if rows > 0 else 0
+
+
+def _staged_columns(host: dict, w: int, chunk: int, subsystem: str,
+                    keep_cols: bool):
+    """Copy the raw ``host`` columns (``w`` rows) to the device and hash
+    their record mini-trees.  Wider than ``chunk`` rows, they stream in
+    row chunks through a :class:`~..parallel.pipeline.ChunkStager`: chunk
+    i+1 copies while chunk i's record roots are hashed.  Returns
+    ``(device columns, (w, 8) record roots)``; the columns are ``None``
+    unless ``keep_cols``, and then no chunk outlives its hashing."""
+    t0 = time.perf_counter()
+    if chunk <= 0 or w <= chunk or w % chunk:
+        cols = {k: to_device(v, subsystem) for k, v in host.items()}
+        t1 = time.perf_counter()
+        rec = _record_roots_body(cols)
+        LAST_COLD_TIMINGS.clear()
+        LAST_COLD_TIMINGS.update(push_ms=(t1 - t0) * 1e3,
+                                 compute_ms=(time.perf_counter() - t1) * 1e3,
+                                 push_overlap_ms=0.0, transfer_ms=0.0,
+                                 push_chunks=1, push_fallbacks=0)
+        return (cols if keep_cols else None), rec
+
+    from ..parallel.pipeline import ChunkStager
+
+    chunks = [{k: v[b:b + chunk] for k, v in host.items()}
+              for b in range(0, w, chunk)]
+    stager = ChunkStager(chunks, subsystem=subsystem)
+    parts, recs = [], []
+    for dev in stager:
+        if keep_cols:
+            parts.append(dev)
+        recs.append(_record_roots_body(dev))
+    cols = ({k: torch.cat([p[k] for p in parts], 0) for k in host}
+            if keep_cols else None)
+    rec = torch.cat(recs, 0)
+    wall = time.perf_counter() - t0
+    LAST_COLD_TIMINGS.clear()
+    LAST_COLD_TIMINGS.update(
+        push_ms=stager.wait_s * 1e3,
+        compute_ms=max(wall - stager.wait_s, 0.0) * 1e3,
+        push_overlap_ms=max(stager.transfer_s - stager.wait_s, 0.0) * 1e3,
+        transfer_ms=stager.transfer_s * 1e3, push_chunks=len(chunks),
+        push_fallbacks=stager.fallbacks)
+    return cols, rec
+
+
+def registry_cold_device(reg: "ValidatorRegistry",
+                         chunk_rows: int | None = None):
     """Cold build on the device: returns ``(root_words, levels)`` — the
     (8,) u32 root of the occupied power-of-two subtree (on the host) and
     the device-resident tree levels for the caller to copy into the host
-    incremental cache."""
+    incremental cache.  Registries wider than one push chunk stream their
+    raw columns through the chunk stager (:func:`_staged_columns`)."""
     from ..ops.merkle import _next_pow2
     n = reg._n
     w = _next_pow2(max(n, 1))
-    cols = {k: to_device(v, TRANSFERS)
-            for k, v in _registry_raw_columns(reg, w).items()}
-    levels = _mirror_levels(cols, n)
-    return to_host(levels[-1][0], TRANSFERS), levels
+    chunk = _reg_chunk_rows() if chunk_rows is None else chunk_rows
+    _, rec = _staged_columns(_registry_raw_columns(reg, w), w, chunk,
+                             "staging", keep_cols=False)
+    levels = _levels_from_records(rec, n)
+    return to_host(levels[-1][0], "staging"), levels
 
 
 # ---------------------------------------------------------------------------
@@ -472,7 +546,7 @@ def registry_device_columns(reg: "ValidatorRegistry") -> dict:
         "withdrawable_epoch":
             u64_to_chunk_words(reg._withdrawable_epoch[:n]),
     }
-    return {k: to_device(v, TRANSFERS) for k, v in host.items()}
+    return {k: to_device(v, "staging") for k, v in host.items()}
 
 
 def registry_root_device(cols: dict, count: int, limit: int) -> bytes:
@@ -503,7 +577,7 @@ def registry_root_device(cols: dict, count: int, limit: int) -> bytes:
         cols["exit_epoch"],
         cols["withdrawable_epoch"],
     ], dim=1).reshape(8 * n, 8)               # 8n-leaf expansion tree
-    roots = to_host(chunk_roots_natural(leaves, CHUNK_LOG2), TRANSFERS)
+    roots = to_host(chunk_roots_natural(leaves, CHUNK_LOG2), "staging")
     log_n = n.bit_length() - 1
     # Reduce the chunk roots to the expansion-tree root, which sits at
     # record level log2(n); the zero caps above it pair with record-level
@@ -545,32 +619,51 @@ class DeviceRegistryMirror:
     either clones the columns it is about to change (the tree clones its
     own levels, :meth:`..ops.device_tree.DeviceTree._own`)."""
 
-    __slots__ = ("cols", "tree", "shared")
+    __slots__ = ("cols", "tree", "shared", "_res", "__weakref__")
 
     def __init__(self, cols: dict, tree, shared: bool = False):
         self.cols = cols
         self.tree = tree
         self.shared = shared
+        self._res = None
 
     @property
     def width(self) -> int:
         return self.cols["slashed"].shape[0]
 
+    def note_residency(self) -> None:
+        """Ledger watermark seam: this mirror's device columns + record
+        tree (a share() clone counts nothing until it diverges — the
+        parent owns the shared buffers)."""
+        total = sum(v.numel() * v.element_size()
+                    for v in self.cols.values()) \
+            + sum(lv.numel() * lv.element_size() for lv in self.tree.levels)
+        if self._res is None:
+            self._res = LEDGER.track(self, "registry_mirror", total)
+        else:
+            self._res.set(total)
+
     @classmethod
     def materialize(cls, reg: "ValidatorRegistry") -> "DeviceRegistryMirror":
-        """One-time column copy + on-device level reduction.  This is the
-        LAST full-width push this lineage ever makes."""
+        """One-time column copy (chunk-staged for registries wider than
+        one push chunk, like the cold build) + on-device level reduction.
+        This is the LAST full-width push this lineage ever makes."""
         from ..ops.device_tree import DeviceTree
         from ..ops.merkle import _next_pow2
         from ..ops.tree_cache import HASH_COUNT
 
         n = reg._n
         w = _next_pow2(max(n, 1))
-        cols = {k: to_device(v, TRANSFERS)
-                for k, v in _registry_raw_columns(reg, w).items()}
-        levels = _mirror_levels(cols, n)
-        HASH_COUNT[0] += 8 * w + (w - 1)
-        return cls(cols, DeviceTree(levels), False)
+        with LEDGER.attribute("registry_mirror"):
+            LEDGER.note_event("materializes")
+            cols, rec = _staged_columns(_registry_raw_columns(reg, w), w,
+                                        _reg_chunk_rows(), "registry_mirror",
+                                        keep_cols=True)
+            levels = _levels_from_records(rec, n)
+            HASH_COUNT[0] += 8 * w + (w - 1)
+            mirror = cls(cols, DeviceTree(levels), False)
+            mirror.note_residency()
+            return mirror
 
     def _own_cols(self) -> None:
         """Copy-on-write: clone the columns before the first in-place
@@ -584,8 +677,8 @@ class DeviceRegistryMirror:
         the (owned) columns; returns ``(idx_dev, rows_dev)``."""
         pidx, rows = _pad_rows_bucket(np.asarray(idx),
                                       _registry_raw_rows(reg, idx))
-        idx_dev = to_device(pidx.astype(np.int64), TRANSFERS)
-        rows_dev = {k: to_device(v, TRANSFERS) for k, v in rows.items()}
+        idx_dev = to_device(pidx.astype(np.int64))
+        rows_dev = {k: to_device(v) for k, v in rows.items()}
         self._own_cols()
         for k, col in self.cols.items():
             col[idx_dev] = rows_dev[k]
@@ -598,16 +691,23 @@ class DeviceRegistryMirror:
         through the record-root tree.  Returns the new subtree root
         words.  H2D = the bucket-padded raw rows."""
         from ..ops.tree_cache import HASH_COUNT
-        idx_dev, rows_dev = self._push_rows(reg, idx)
-        HASH_COUNT[0] += idx_dev.shape[0] * (8 + len(self.tree.levels) - 1)
-        return self.tree.scatter_device(idx_dev, _record_roots_body(rows_dev))
+        with LEDGER.attribute("registry_mirror"):
+            idx_dev, rows_dev = self._push_rows(reg, idx)
+            HASH_COUNT[0] += idx_dev.shape[0] * (8 + len(self.tree.levels)
+                                                 - 1)
+            root = self.tree.scatter_device(idx_dev,
+                                            _record_roots_body(rows_dev))
+            self.note_residency()
+            return root
 
     def scatter_cols(self, reg: "ValidatorRegistry",
                      idx: np.ndarray) -> None:
         """Update only the device columns at ``idx`` (no tree propagation)
         — the prelude to :meth:`rebuild` when the dirty fraction or a
         width change makes path-walking the wrong tool."""
-        self._push_rows(reg, idx)
+        with LEDGER.attribute("registry_mirror"):
+            self._push_rows(reg, idx)
+            self.note_residency()
 
     def rebuild(self, n: int) -> np.ndarray:
         """Re-reduce every level from the device columns — zero push."""
@@ -615,9 +715,12 @@ class DeviceRegistryMirror:
 
         w = self.width
         HASH_COUNT[0] += 8 * w + (w - 1)
-        self.tree.levels = _mirror_levels(self.cols, n)
-        self.tree.shared = False
-        return self.tree.root_words()
+        with LEDGER.attribute("registry_mirror"):
+            LEDGER.note_event("rebuilds")
+            self.tree.levels = _mirror_levels(self.cols, n)
+            self.tree.shared = False
+            self.note_residency()
+            return self.tree.root_words()
 
     def ensure_width(self, new_w: int) -> bool:
         """Grow the device columns to ``new_w`` rows (device-side zero pad

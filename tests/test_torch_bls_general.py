@@ -31,6 +31,10 @@ from lighthouse_tpu_torch.crypto import limb_field as LF
 from lighthouse_tpu_torch.crypto import pairing_kernel as PK
 from lighthouse_tpu_torch.crypto import tpu_backend as TB
 
+# The tests here are about the device path: keep small batches off the
+# native host fast path.
+pytestmark = pytest.mark.usefixtures("pin_device_path")
+
 S = PK.PREP_S
 
 

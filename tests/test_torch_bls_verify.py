@@ -20,6 +20,10 @@ from lighthouse_tpu_torch.crypto import bls, fields as F
 from lighthouse_tpu_torch.crypto import htc_kernel as HK
 from lighthouse_tpu_torch.crypto import tpu_backend as TB
 
+# The tests here are about the device path: keep small batches off the
+# native host fast path.
+pytestmark = pytest.mark.usefixtures("pin_device_path")
+
 N_SETS, N_KEYS = 8, 5
 
 

@@ -63,6 +63,9 @@ _DEVICE_CALLS = [
     "merkle.merkleize(np.zeros((8192, 8), np.uint32), 13)",
     "device_tree.DeviceTree.from_host_leaves(np.zeros((8, 8), np.uint32))",
     "tpu_backend.verify_shared_columns(*[np.zeros((64, 256), np.uint32)] * 7)",
+    "tpu_backend.TpuBackend().verify_signature_sets([])",
+    "compile_cache.warmup()",
+    "pipeline.ChunkStager([np.zeros(8, np.uint32)])",
 ]
 
 
@@ -76,6 +79,8 @@ def device_call_outcomes() -> dict:
         "from lighthouse_tpu_torch.ops import device_tree, merkle, "
         "merkle_kernel\n"
         "from lighthouse_tpu_torch.crypto import tpu_backend\n"
+        "from lighthouse_tpu_torch.common import compile_cache\n"
+        "from lighthouse_tpu_torch.parallel import pipeline\n"
         "assert device.default_device().type == 'cuda'\n"
         f"for call in {_DEVICE_CALLS!r}:\n"
         "    try:\n"
@@ -91,3 +96,46 @@ def device_call_outcomes() -> dict:
 def test_default_device_is_cuda_and_raises_without_gpu(call,
                                                       device_call_outcomes):
     assert device_call_outcomes.get(call) == "raised"
+
+
+# The modules the native library, device ledger, chunk stager and proof
+# engine slice added.
+_NEW_MODULES = [
+    "lighthouse_tpu_torch.crypto.native",
+    "lighthouse_tpu_torch.common.device_ledger",
+    "lighthouse_tpu_torch.common.metrics",
+    "lighthouse_tpu_torch.common.compile_cache",
+    "lighthouse_tpu_torch.ops.merkle_proof",
+    "lighthouse_tpu_torch.ops.proof_engine",
+    "lighthouse_tpu_torch.parallel.pipeline",
+]
+
+
+@pytest.fixture(scope="module")
+def new_module_imports() -> dict:
+    """Each of ``_NEW_MODULES`` imported in one fresh interpreter with
+    JAX blocked: module → "ok" when it imported, pulled in no JAX, and
+    built or started building nothing (no native library loaded or
+    building, no CUDA library loaded)."""
+    proc = _run(
+        "import importlib\n"
+        f"for name in {_NEW_MODULES!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(name)\n"
+        "        print('ok')\n"
+        "    except Exception as e:\n"
+        "        print(repr(e))\n"
+        "from lighthouse_tpu_torch.crypto import native\n"
+        "from lighthouse_tpu_torch.ops import cuda_build\n"
+        "assert native._lib is None and native._building is None\n"
+        "assert not cuda_build._LOADED\n"
+        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()\n"
+        "                      if v is not None}\n")
+    assert proc.returncode == 0, proc.stderr
+    return dict(zip(_NEW_MODULES, proc.stdout.splitlines()))
+
+
+@pytest.mark.parametrize("module", _NEW_MODULES)
+def test_new_modules_import_without_jax_and_build_nothing(
+        module, new_module_imports):
+    assert new_module_imports.get(module) == "ok"

@@ -1,5 +1,5 @@
 """The port's staged executor (``parallel/pipeline.py``) on the CPU: item
-order and results, the byte counter, the one retry after a staging
+order and results, the ledger's staged bytes, the one retry after a staging
 fault, and the overlap statistics; and the stage profile, which
 times the GPU only."""
 
@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from lighthouse_tpu_torch import device
+from lighthouse_tpu_torch.common.device_ledger import LEDGER
 from lighthouse_tpu_torch.crypto import profiling
 from lighthouse_tpu_torch.parallel import pipeline
 from lighthouse_tpu_torch.parallel.pipeline import StagedExecutor, stage_arrays
@@ -38,27 +39,31 @@ def _prep(i):
 
 
 def test_map_stages_every_array_and_keeps_order():
-    counter = {"h2d": 0, "d2h": 0}
-    ex = StagedExecutor("t", counter=counter)
+    LEDGER.reset()
+    ex = StagedExecutor("t", subsystem="bls")
     out = ex.map(range(3), _prep,
                  lambda st: (int(st[0].sum()), st[1].shape[0], st[2]))
     assert out == [(0, 1, 0), (6, 2, 1), (12, 3, 2)]
-    assert counter["h2d"] == 3 * 24 + 4 * (1 + 2 + 3)
+    # the staged bytes are the device ledger's, under the executor's
+    # subsystem
+    bls_row = LEDGER.snapshot()["subsystems"]["bls"]
+    assert bls_row["h2d_bytes"] == 3 * 24 + 4 * (1 + 2 + 3)
+    assert bls_row["h2d_ops"] == 6
     assert ex.stats["items"] == 3 and ex.stats["fallbacks"] == 0
     # marshalling after the first dispatch ran with device work queued
     assert 0 < ex.overlap_efficiency() < 1
-    staged = stage_arrays((np.ones(2, np.uint32), 4), counter)
+    staged = stage_arrays((np.ones(2, np.uint32), 4), "bls")
     assert staged[1] == 4 and staged[0].dtype == torch.int32
 
 
 def test_one_retry_after_a_fault_then_it_propagates(monkeypatch):
     fails = {"stage": 1}
 
-    def flaky_stage(host, counter):
+    def flaky_stage(host, subsystem):
         if fails["stage"]:
             fails["stage"] -= 1
             raise RuntimeError("transfer fault")
-        return stage_arrays(host, counter)
+        return stage_arrays(host, subsystem)
 
     monkeypatch.setattr(pipeline, "stage_arrays", flaky_stage)
     ex = StagedExecutor("t")
