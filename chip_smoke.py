@@ -107,8 +107,34 @@ Phases, each of which fails the run with a non-zero exit:
     record-root plane) and verified with ``verify_merkle_proof``; its
     device→host bytes equal 32 × distinct nodes; ``ProofServer.
     field_branch`` for every field of the state equals a hashlib fold of
-    the field roots to the state root.  Then the device ledger's snapshot
-    (with the caching allocator's memory figures).
+    the field roots to the state root.
+13. Block import through the three stages (gossip → signature-verified
+    → executed; the port has no ``chain.py`` yet, so ``ImportChain``
+    stands in for the chain).  (a) A MINIMAL Capella chain of 4 epochs
+    + 1 slot at 64 validators with real signatures (a deposit, an exit,
+    a proposer and an attester slashing), built by the port's
+    ``StateHarness`` on the host oracle (``LIGHTHOUSE_TPU_DEVICE_STATE=0``,
+    ``NO_VERIFICATION``), imported on a device-resident state with every
+    batch on the card (``LIGHTHOUSE_TPU_HOST_FASTPATH_MAX=0``), once with
+    the epoch sweep on numpy and once on the card: every post-state root
+    equals the block's, the final state the oracle's byte for byte; a
+    wrong attestation signature, state root and proposal signature raise
+    ``InvalidSignatures``, ``StateRootMismatch`` and
+    ``ProposalSignatureInvalid``.  (b) One MAINNET Capella block at 2^20
+    validators (keys [0x10000 + 7v]G, the parent at the last slot of an
+    epoch, 128 aggregates of ~90% of their committees, a sync aggregate
+    of ~460 of 512, withdrawals), its state root from the port's host
+    oracle, imported with the defaults (device state, device BLS,
+    overlapped dispatch; the pubkey cache filled from the derived keys and
+    the registry's pubkey index built, as a running node's are warm).  Every launch counter is zeroed before
+    the parent's materialize and read after the first import: each
+    kernel of the path must have launched.  The epoch transition runs
+    with the sweep on the card and on numpy (post-states raw equal), then
+    3 warm imports on fresh copies of the parent give the median stage
+    split, the overlap, launches and ledger bytes per import, and one
+    more runs under torch.profiler (busy time, idle share).  Then the
+    device ledger's snapshot (with the caching allocator's memory
+    figures).
 
 The line before the last is one JSON object with each kernel's launches,
 error, time, plain-version time and bound (for every BLS kernel also its
@@ -119,7 +145,8 @@ drives; product_chunks and product with their calls queued behind a spin
 Miller+fold, hash-to-G2 and sigma take ``ms`` at the shared path's
 shapes and add ``ms_general`` and its bounds at the general path's,
 prepare adds ``ms_block`` and its chain bounds on the block batch's two
-items); the last line is
+items; every row adds ``launches_import``, its launches in one warm
+phase-13(b) import); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing a result.
 """
@@ -2383,6 +2410,637 @@ def phase_proof_engine(torch, hw: dict, state) -> dict:
             "h2d": moved[-1][0], "field_ms": field_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: block import through the three stages on the card
+# ---------------------------------------------------------------------------
+
+IMPORT_SMALL_VALIDATORS = 64
+IMPORT_SMALL_SLOTS = 4 * 8 + 1       # 4 MINIMAL epochs + 1 slot
+IMPORT_LOG2_VALIDATORS = 20
+IMPORT_EPOCH = 1000                  # its end crosses no sync-committee,
+#                                      historical or eth1-voting boundary
+IMPORT_GENESIS_TIME = 1_606_824_023
+IMPORT_WARM_RUNS = 3
+IMPORT_PATH_KERNELS = ("hash64", "subtree", "hash_g2", "prepare", "sigma",
+                       "sigma_combine", "miller_fold", "product_chunks",
+                       "finalize")
+IMPORT_SPANS = ("gossip_verify", "epoch_transition", "state_transition",
+                "post_state_root", "sig_join")
+
+
+class ImportChain:
+    """The slice of a beacon chain the three block-import stages read
+    (the port has no ``chain.py`` yet): block roots map to post-states,
+    the clock is the newest block's slot, and chains may share one
+    ``PubkeyCache``."""
+
+    def __init__(self, anchor, anchor_root: bytes, preset, spec, T,
+                 pubkey_cache=None):
+        from lighthouse_tpu_torch.beacon_chain.observed import \
+            ObservedBlockProducers
+        from lighthouse_tpu_torch.state_transition.signature_sets import \
+            PubkeyCache
+        self.preset, self.spec, self.T = preset, spec, T
+        self.pubkey_cache = pubkey_cache or PubkeyCache()
+        self.payload_verifier = None
+        self.observed_block_producers = ObservedBlockProducers()
+        self._advanced_states = {}
+        self.fork_choice = self
+        self.slot = int(anchor.slot)
+        self._states = {bytes(anchor_root): anchor}
+
+    def current_slot(self) -> int:
+        return self.slot
+
+    def contains_block(self, root: bytes) -> bool:
+        return bytes(root) in self._states
+
+    def state_at_block_root(self, root: bytes):
+        return self._states[bytes(root)].copy()
+
+    def import_block(self, signed_block):
+        from lighthouse_tpu_torch.beacon_chain import block_verification as BV
+        self.slot = max(self.slot, int(signed_block.message.slot))
+        g = BV.GossipVerifiedBlock.new(self, signed_block)
+        sv = BV.SignatureVerifiedBlock.from_gossip_verified(self, g)
+        ex = BV.ExecutedBlock.from_signature_verified(self, sv)
+        self._states[ex.block_root] = ex.post_state
+        return ex.post_state
+
+
+def latest_block_root(state, T) -> bytes:
+    """The root of the block ``state`` is the post-state of (its header
+    with the state root filled in, as the next ``process_slot`` does)."""
+    h = state.latest_block_header
+    sr = bytes(h.state_root)
+    if sr == b"\x00" * 32:
+        sr = state.tree_hash_root()
+    return T.BeaconBlockHeader(slot=h.slot, proposer_index=h.proposer_index,
+                               parent_root=h.parent_root, state_root=sr,
+                               body_root=h.body_root).tree_hash_root()
+
+
+def all_launches() -> dict:
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.ops import merkle_kernel as mk
+    return {**mk.LAUNCHES, **HK.LAUNCHES, **PK.LAUNCHES}
+
+
+def zero_all_launches() -> None:
+    from lighthouse_tpu_torch.crypto import htc_kernel as HK
+    from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.ops import merkle_kernel as mk
+    zero_launches(mk.LAUNCHES, HK.LAUNCHES, PK.LAUNCHES)
+
+
+def import_expecting(chain, sb, error_cls) -> None:
+    try:
+        chain.import_block(sb)
+    except error_cls:
+        return
+    except Exception as e:  # noqa: BLE001 — reported as the failure
+        fail(f"import raised {type(e).__name__}: {e}, not "
+             f"{error_cls.__name__}")
+    fail(f"a tampered block imported (expected {error_cls.__name__})")
+
+
+def resign_block(block, parent_state, sk: int, preset) -> bytes:
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.state_transition.helpers import (
+        compute_epoch_at_slot, compute_signing_root, get_domain)
+    from lighthouse_tpu_torch.types import Domain
+    epoch = compute_epoch_at_slot(int(block.slot), preset.SLOTS_PER_EPOCH)
+    domain = get_domain(parent_state, Domain.BEACON_PROPOSER, epoch, preset)
+    return bls.SecretKey(sk).sign(
+        compute_signing_root(block, domain)).serialize()
+
+
+def tamper_imports(chain_fn, sb, parent_state, sk_of, preset, fork) -> list:
+    """The three tamper classes on ``sb``, each on a fresh chain from
+    ``chain_fn()``: a wrong attestation signature (block re-signed), a
+    wrong state root (re-signed), a wrong proposal signature."""
+    from lighthouse_tpu_torch.beacon_chain import errors as BE
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.types.carry import signed_block_from_ssz
+    data = type(sb).serialize(sb)
+    wrong = bls.SecretKey(12345).sign(b"\x5a" * 32).serialize()
+    out = []
+    for kind, err in (("attestation signature", BE.InvalidSignatures),
+                      ("state root", BE.StateRootMismatch),
+                      ("proposal signature", BE.ProposalSignatureInvalid)):
+        t = signed_block_from_ssz(data, preset.name, fork)
+        sk = sk_of(int(t.message.proposer_index))
+        if kind == "attestation signature":
+            t.message.body.attestations[0].signature = wrong
+            t.signature = resign_block(t.message, parent_state, sk, preset)
+        elif kind == "state root":
+            t.message.state_root = b"\x33" * 32
+            t.signature = resign_block(t.message, parent_state, sk, preset)
+        else:
+            t.signature = wrong
+        import_expecting(chain_fn(), t, err)
+        out.append(f"{kind} -> {err.__name__}")
+    return out
+
+
+def timed_import(torch, chain, sb) -> tuple:
+    """One import through the stages, fenced by device syncs: its wall,
+    the stage spans of the tracer, the signature dispatch's stats, the
+    block's phase split and the ledger's bytes."""
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
+    from lighthouse_tpu_torch.common.tracing import TRACER
+    from lighthouse_tpu_torch.state_transition import per_block as PB
+    from lighthouse_tpu_torch.state_transition import sig_dispatch as SD
+    slot = int(sb.message.slot)
+    TRACER.reset()
+    TRACER.set_slot(slot)
+    ledger0 = LEDGER.transfer_totals()
+    post, wall = timed(torch, lambda: chain.import_block(sb))
+    spans = {}
+    for s in TRACER.slot_spans(slot):
+        if s["name"] in IMPORT_SPANS:
+            spans[s["name"] + "_ms"] = spans.get(s["name"] + "_ms", 0.0) \
+                + s["dur_us"] / 1e3
+    sig = {k: SD.LAST_SIG_DISPATCH.get(k) for k in
+           ("sets", "deduped", "path", "device_verify_ms", "join_wait_ms",
+            "overlap_efficiency")}
+    return post, {"wall_ms": wall, **spans, "sig": sig,
+                  "block_phases": dict(PB.LAST_BLOCK_TIMINGS),
+                  "ledger": ledger_moved(LEDGER, ledger0)}
+
+
+def phase_import_minimal(torch, hw: dict) -> dict:
+    """13(a): a MINIMAL Capella chain of 4 epochs + 1 slot at 64
+    validators with real signatures, built by the port's harness on the
+    host oracle (``LIGHTHOUSE_TPU_DEVICE_STATE=0``, ``NO_VERIFICATION``),
+    imported through the three stages on a device-resident anchor with
+    every batch on the device (fast path off), once with the epoch sweep
+    on numpy and once on the card; every post-state root must equal the
+    block's, and three tamper classes raise the reference's errors."""
+    from lighthouse_tpu_torch.state_transition import (SignatureStrategy,
+                                                       interop_secret_key)
+    from lighthouse_tpu_torch.testing import StateHarness
+    from lighthouse_tpu_torch.types.device_state import (is_materialized,
+                                                         materialize_state)
+
+    t0 = time.perf_counter()
+    os.environ["LIGHTHOUSE_TPU_DEVICE_STATE"] = "0"
+    try:
+        h = StateHarness(IMPORT_SMALL_VALIDATORS)
+        h.spec.shard_committee_period = 0     # exits from genesis on
+        genesis = h.state.copy()
+        blocks, i = [], 0
+        while int(h.state.slot) < IMPORT_SMALL_SLOTS:
+            kw = {}
+            if i == 3:
+                h.make_deposit(IMPORT_SMALL_VALIDATORS)
+            elif i == 6:
+                kw["voluntary_exits"] = [h.make_exit(h.state, 5)]
+            elif i == 9:
+                kw["proposer_slashings"] = [
+                    h.make_proposer_slashing(h.state, 3)]
+            elif i == 12:
+                kw["attester_slashings"] = [
+                    h.make_attester_slashing(h.state, [10, 11])]
+            sb = h.build_block(**kw)
+            blocks.append(sb)
+            h.apply_block(sb, strategy=SignatureStrategy.NO_VERIFICATION)
+            i += 1
+    finally:
+        os.environ.pop("LIGHTHOUSE_TPU_DEVICE_STATE", None)
+    final = h.state
+    check(len(final.validators) == IMPORT_SMALL_VALIDATORS + 1
+          and int(final.finalized_checkpoint.epoch) >= 1,
+          "13(a): the harness chain lacks its deposit or finality")
+    build_s = time.perf_counter() - t0
+    fork = h.fork_at(IMPORT_SMALL_SLOTS)
+    os.environ["LIGHTHOUSE_TPU_HOST_FASTPATH_MAX"] = "0"
+    out = {}
+    try:
+        # untimed: the first blocks once, so neither timed run is the
+        # cold one (device key table, allocator)
+        anchor = genesis.copy()
+        materialize_state(anchor)
+        chain = ImportChain(anchor, latest_block_root(anchor, h.T), h.preset,
+                            h.spec, h.T)
+        for sb in blocks[:3]:
+            chain.import_block(sb)
+        for sweep in ("0", "1"):
+            os.environ["LIGHTHOUSE_TPU_EPOCH_DEVICE"] = sweep
+            anchor = genesis.copy()
+            check(materialize_state(anchor), "13(a): materialize refused")
+            chain = ImportChain(anchor, latest_block_root(anchor, h.T),
+                                h.preset, h.spec, h.T)
+            zero_all_launches()
+            t1 = time.perf_counter()
+            post = anchor
+            for sb in blocks:
+                post = chain.import_block(sb)
+                check(is_materialized(post), "13(a): a post-state left the "
+                                             "device")
+            ms = (time.perf_counter() - t1) * 1e3
+            launched = all_launches()
+            check(type(post).serialize(post) == type(final).serialize(final),
+                  f"13(a): final state != the host oracle's (sweep {sweep})")
+            check(all(launched[k] > 0 for k in IMPORT_PATH_KERNELS
+                      if k != "subtree"),
+                  f"13(a): a kernel of the path never launched: {launched}")
+            out[sweep] = {"ms": ms, "launches": launched}
+        os.environ.pop("LIGHTHOUSE_TPU_EPOCH_DEVICE", None)
+        k = 10
+        anchor = genesis.copy()
+        materialize_state(anchor)
+        chain = ImportChain(anchor, latest_block_root(anchor, h.T), h.preset,
+                            h.spec, h.T)
+        parent = anchor
+        for sb in blocks[:k]:
+            parent = chain.import_block(sb)
+        parent_root = bytes(blocks[k].message.parent_root)
+
+        def fresh():
+            c = ImportChain(parent, parent_root, h.preset, h.spec, h.T,
+                            chain.pubkey_cache)
+            c.slot = chain.slot
+            return c
+
+        tampers = tamper_imports(
+            fresh, blocks[k], parent,
+            lambda v: interop_secret_key(v).scalar, h.preset, fork)
+    finally:
+        os.environ.pop("LIGHTHOUSE_TPU_HOST_FASTPATH_MAX", None)
+        os.environ.pop("LIGHTHOUSE_TPU_EPOCH_DEVICE", None)
+    print(f"13(a) MINIMAL chain: {len(blocks)} blocks to slot "
+          f"{int(final.slot)} (a deposit, an exit, a proposer and an "
+          f"attester slashing; finalized epoch "
+          f"{int(final.finalized_checkpoint.epoch)}), built on the host "
+          f"oracle in {build_s:.1f} s; imported through the three stages "
+          f"on the device state with every batch on the card (after an "
+          f"untimed pass over 3 blocks): {out['0']['ms']:.0f} ms (numpy "
+          f"sweep), {out['1']['ms']:.0f} ms (sweep on the card), every post-state root equal to the "
+          f"block's and the final state byte-equal to the oracle's; "
+          f"launches {out['1']['launches']}; tampers: {'; '.join(tampers)}"
+          f" [{hw['card']}]")
+    return out
+
+
+def build_import_parent(T, spec, preset, C, bls, keys, rng):
+    """A MAINNET Capella state of ``len(keys)`` active validators at the
+    last slot of ``IMPORT_EPOCH``: validator v's key is [0x10000 + 7v]G,
+    ~90% of both epochs' participation flags set, a sync committee of
+    512 distinct validators, execution-address credentials with a small
+    excess balance (partial withdrawals)."""
+    from lighthouse_tpu_torch.types import ForkName
+    from lighthouse_tpu_torch.types.validators import ValidatorRegistry
+    n = len(keys)
+    slots = preset.SLOTS_PER_EPOCH
+    e = IMPORT_EPOCH
+    pubs = np.frombuffer(b"".join(C.g1_compress(k) for k in keys),
+                         dtype=np.uint8).reshape(n, 48)
+    creds = np.zeros((n, 32), dtype=np.uint8)
+    creds[:, 0] = 1
+    creds[:, 12:] = rng.integers(0, 256, (n, 20), dtype=np.uint8)
+    reg = ValidatorRegistry(n)
+    zero = np.zeros(n, dtype=np.uint64)
+    reg.init_columns(
+        pubkey=pubs, withdrawal_credentials=creds,
+        effective_balance=np.full(n, preset.MAX_EFFECTIVE_BALANCE,
+                                  dtype=np.uint64),
+        slashed=np.zeros(n, dtype=bool), activation_eligibility_epoch=zero,
+        activation_epoch=zero, exit_epoch=np.full(n, FAR, dtype=np.uint64),
+        withdrawable_epoch=np.full(n, FAR, dtype=np.uint64))
+    state = T.state_cls(ForkName.CAPELLA)()
+    state.genesis_time = IMPORT_GENESIS_TIME
+    state.genesis_validators_root = rng.bytes(32)
+    state.slot = e * slots + slots - 1
+    version = spec.fork_version(ForkName.CAPELLA)
+    state.fork = T.Fork(previous_version=version, current_version=version,
+                        epoch=0)
+    state.validators = reg
+    state.balances = (preset.MAX_EFFECTIVE_BALANCE + rng.integers(
+        0, 20_000_000, n)).astype(np.uint64)
+    for vec in (state.block_roots, state.state_roots, state.randao_mixes):
+        vec[:] = rng.integers(0, 256, vec.shape, dtype=np.uint8)
+    state.eth1_data = T.Eth1Data(deposit_root=rng.bytes(32),
+                                 deposit_count=n, block_hash=rng.bytes(32))
+    state.eth1_deposit_index = n
+    state.latest_block_header = T.BeaconBlockHeader(
+        slot=int(state.slot), proposer_index=int(rng.integers(n)),
+        parent_root=rng.bytes(32), state_root=b"\x00" * 32,
+        body_root=rng.bytes(32))
+    for name in ("previous_epoch_participation",
+                 "current_epoch_participation"):
+        flags = np.where(rng.random(n) < 0.9, 7,
+                         rng.integers(0, 8, n)).astype(np.uint8)
+        setattr(state, name, flags)
+    state.inactivity_scores = np.zeros(n, dtype=np.uint64)
+    state.justification_bits[:] = [True, True, True, False]
+
+    def cp(epoch):
+        return T.Checkpoint(epoch=epoch, root=bytes(
+            state.block_roots[epoch * slots
+                              % preset.SLOTS_PER_HISTORICAL_ROOT]))
+
+    state.current_justified_checkpoint = cp(e - 1)
+    state.previous_justified_checkpoint = cp(e - 2)
+    state.finalized_checkpoint = cp(e - 3)
+    sync = rng.choice(n, preset.SYNC_COMMITTEE_SIZE, replace=False)
+    committee = T.SyncCommittee(
+        pubkeys=[pubs[v].tobytes() for v in sync],
+        aggregate_pubkey=C.g1_compress(bls.aggregate_points(
+            [keys[v] for v in sync])))
+    state.current_sync_committee = committee
+    state.next_sync_committee = committee
+    header_cls = type(state).FIELDS["latest_execution_payload_header"]
+    state.latest_execution_payload_header = header_cls(
+        parent_hash=rng.bytes(32), block_hash=rng.bytes(32),
+        block_number=17_000_000, gas_limit=30_000_000,
+        timestamp=IMPORT_GENESIS_TIME + int(state.slot) * 12,
+        prev_randao=rng.bytes(32))
+    state.next_withdrawal_validator_index = int(rng.integers(n))
+    return state, sync
+
+
+def build_import_block(T, spec, preset, bls, adv, sync, rng):
+    """The block at ``adv.slot`` (``adv``: the parent advanced to it):
+    one aggregate per committee of the two slots before it (~90% of each
+    committee), a sync aggregate of ~460 of 512, the randao reveal, the
+    execution payload with the expected withdrawals; the state root and
+    the proposal signature are filled in by the caller.  Returns the
+    block, its proposer, the sync participants and every signer."""
+    import hashlib as _hl
+
+    from lighthouse_tpu_torch.crypto.fields import R
+    from lighthouse_tpu_torch.ssz import uint64 as u64
+    from lighthouse_tpu_torch.state_transition import committees as CM
+    from lighthouse_tpu_torch.state_transition.helpers import (
+        compute_signing_root, current_epoch, get_block_root_at_slot,
+        get_domain, get_randao_mix)
+    from lighthouse_tpu_torch.state_transition.per_block import \
+        get_expected_withdrawals
+    from lighthouse_tpu_torch.types import Domain, ForkName
+
+    def sk(v):
+        return GEN_SK0 + GEN_SK_STEP * int(v)
+
+    def signed(members, root):
+        return bls.SecretKey(sum(sk(v) for v in members) % R).sign(
+            root).serialize()
+
+    slot, slots = int(adv.slot), preset.SLOTS_PER_EPOCH
+    epoch = slot // slots
+    atts, signers = [], set()
+    for s in (slot - 2, slot - 1):
+        e = s // slots
+        source = (adv.current_justified_checkpoint
+                  if e == current_epoch(adv, preset)
+                  else adv.previous_justified_checkpoint)
+        target = T.Checkpoint(epoch=e, root=get_block_root_at_slot(
+            adv, e * slots, preset))
+        domain = get_domain(adv, Domain.BEACON_ATTESTER, e, preset)
+        for index in range(CM.get_committee_count_per_slot(adv, e, preset)):
+            committee = CM.get_beacon_committee(adv, s, index, preset)
+            data = T.AttestationData(
+                slot=s, index=index,
+                beacon_block_root=get_block_root_at_slot(adv, s, preset),
+                source=T.Checkpoint(epoch=source.epoch, root=source.root),
+                target=target)
+            bits = rng.random(len(committee)) < PARTICIPATION
+            signers.update(int(v) for v in committee[bits])
+            atts.append(T.Attestation(
+                aggregation_bits=bits, data=data,
+                signature=signed(committee[bits],
+                                 compute_signing_root(data, domain))))
+    prev = slot - 1
+    sync_bits = rng.random(len(sync)) < SYNC_PARTICIPATION
+    sync_root = compute_signing_root(
+        get_block_root_at_slot(adv, prev, preset),
+        get_domain(adv, Domain.SYNC_COMMITTEE, prev // slots, preset))
+    proposer = CM.get_beacon_proposer_index(adv, preset)
+    reveal = bls.SecretKey(sk(proposer)).sign(compute_signing_root(
+        u64.hash_tree_root(epoch),
+        get_domain(adv, Domain.RANDAO, epoch, preset))).serialize()
+    hdr = adv.latest_execution_payload_header
+    payload = T.payload_cls(ForkName.CAPELLA)(
+        parent_hash=hdr.block_hash,
+        prev_randao=get_randao_mix(adv, epoch, preset),
+        block_number=hdr.block_number + 1, gas_limit=30_000_000,
+        timestamp=adv.genesis_time + slot * spec.seconds_per_slot,
+        block_hash=_hl.sha256(bytes(hdr.block_hash)
+                              + slot.to_bytes(8, "little")).digest(),
+        withdrawals=[T.Withdrawal(index=w[0], validator_index=w[1],
+                                  address=w[2], amount=w[3])
+                     for w in get_expected_withdrawals(adv, preset)])
+    body = T.body_cls(ForkName.CAPELLA)(
+        randao_reveal=reveal, eth1_data=adv.eth1_data,
+        graffiti=b"\x00" * 32, proposer_slashings=[], attester_slashings=[],
+        attestations=atts, deposits=[], voluntary_exits=[],
+        sync_aggregate=T.SyncAggregate(
+            sync_committee_bits=sync_bits,
+            sync_committee_signature=signed(sync[sync_bits], sync_root)),
+        execution_payload=payload, bls_to_execution_changes=[])
+    block = T.block_cls(ForkName.CAPELLA)(
+        slot=slot, proposer_index=proposer,
+        parent_root=adv.latest_block_header.tree_hash_root(),
+        state_root=b"\x00" * 32, body=body)
+    return block, proposer, int(sync_bits.sum()), signers
+
+
+def python_profile(torch, label: str, fn, top: int = 12) -> None:
+    """One run of ``fn`` under cProfile (the calling thread only): the
+    port's functions with the most cumulative time."""
+    import cProfile
+    import pstats
+    pr = cProfile.Profile()
+    pr.enable()
+    fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    rows = sorted(((v[3], v[1], f"{os.path.basename(k[0])}:{k[1]}({k[2]})")
+                   for k, v in pstats.Stats(pr).stats.items()
+                   if "lighthouse_tpu_torch" in k[0]), reverse=True)[:top]
+    print(f"cProfile {label} (cumulative, the importing thread): " + "; ".join(
+        f"{name} x{calls} {t * 1e3:.1f} ms" for t, calls, name in rows))
+
+
+def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
+    """13(b): one MAINNET Capella block at ``len(keys)`` validators,
+    imported through the three stages with the defaults (device-resident
+    state, device BLS, overlapped dispatch); its state root comes from the
+    port's host oracle (``LIGHTHOUSE_TPU_DEVICE_STATE=0``,
+    ``NO_VERIFICATION``).  The parent is at the last slot of an epoch, so
+    the gossip stage's ``process_slots`` runs the epoch transition."""
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
+    from lighthouse_tpu_torch.common.tracing import TRACER
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto import curve as C
+    from lighthouse_tpu_torch.state_transition import SignatureStrategy
+    from lighthouse_tpu_torch.state_transition import per_epoch as PE
+    from lighthouse_tpu_torch.state_transition.helpers import (
+        compute_signing_root, get_domain)
+    from lighthouse_tpu_torch.state_transition.per_block import process_block
+    from lighthouse_tpu_torch.state_transition.per_slot import process_slots
+    from lighthouse_tpu_torch.state_transition.signature_sets import \
+        PubkeyCache
+    from lighthouse_tpu_torch.types import (MAINNET, ChainSpec, Domain,
+                                            ForkName)
+    from lighthouse_tpu_torch.types.device_state import (is_materialized,
+                                                         materialize_state)
+    from lighthouse_tpu_torch.types.factory import spec_types
+
+    preset, T = MAINNET, spec_types(MAINNET)
+    spec = ChainSpec.mainnet().with_forks_at_genesis(ForkName.CAPELLA)
+    n = len(keys)
+    rng = np.random.default_rng(SEED + 13)
+    t0 = time.perf_counter()
+    parent, sync = build_import_parent(T, spec, preset, C, bls, keys, rng)
+    slot = int(parent.slot) + 1
+    t_state = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    os.environ["LIGHTHOUSE_TPU_DEVICE_STATE"] = "0"
+    try:
+        adv = process_slots(parent.copy(), slot, preset, spec, T)
+        block, proposer, n_sync, signers = build_import_block(
+            T, spec, preset, bls, adv, sync, rng)
+        scratch = adv.copy()
+        process_block(scratch, T.signed_block_cls(ForkName.CAPELLA)(
+            message=block, signature=bls.INFINITY_SIGNATURE),
+            ForkName.CAPELLA, preset, spec, T,
+            strategy=SignatureStrategy.NO_VERIFICATION)
+        block.state_root = scratch.tree_hash_root()
+        domain = get_domain(adv, Domain.BEACON_PROPOSER,
+                            slot // preset.SLOTS_PER_EPOCH, preset)
+    finally:
+        os.environ.pop("LIGHTHOUSE_TPU_DEVICE_STATE", None)
+    sb = T.signed_block_cls(ForkName.CAPELLA)(
+        message=block, signature=bls.SecretKey(
+            GEN_SK0 + GEN_SK_STEP * proposer).sign(
+            compute_signing_root(block, domain)).serialize())
+    parent_root = bytes(block.parent_root)
+    del adv, scratch
+    t_block = time.perf_counter() - t0
+    # a running node's pubkey cache is warm: fill it from the derived keys
+    cache = PubkeyCache()
+    col = parent.validators.col("pubkey")
+    for v in signers | {proposer} | {int(s) for s in sync}:
+        cache._by_index[v] = bls.PublicKey(keys[v])
+    for s in sync:
+        cache._index_by_pubkey[col[s].tobytes()] = int(s)
+    # so is the registry's pubkey → index map, which copies share
+    check(parent.validators.pubkey_index(col[proposer].tobytes())
+          == proposer, "13(b): the registry's pubkey index is wrong")
+    n_atts = len(block.body.attestations)
+    print(f"13(b) set-up (host): the {n}-validator parent state in "
+          f"{t_state:.1f} s; the block at slot {slot} ({n_atts} aggregates "
+          f"of {len(signers)} signers, sync {n_sync}/{len(sync)}, "
+          f"{len(block.body.execution_payload.withdrawals)} withdrawals) "
+          f"and its state root on the host oracle in {t_block:.1f} s")
+
+    def chain():
+        return ImportChain(parent, parent_root, preset, spec, T, cache)
+
+    TRACER.enable()
+    try:
+        # the path's counted run: the parent's device root (materialize),
+        # its uncached root, then the first import (cold device key table)
+        zero_all_launches()
+        ledger0 = LEDGER.transfer_totals()
+        _, mat_ms = timed(torch, lambda: check(materialize_state(parent),
+                                               "materialize refused"))
+        r_unc, unc_ms = timed(torch, lambda: type(parent).hash_tree_root(
+            parent))
+        check(parent.tree_hash_root() == r_unc,
+              "13(b): the parent's device root != its uncached root")
+        check(latest_block_root(parent, T) == parent_root,
+              "13(b): the block's parent root != the device parent's root")
+        post, cold = timed_import(torch, chain(), sb)
+        launched = all_launches()
+        moved = ledger_moved(LEDGER, ledger0)
+        missing = [k for k in IMPORT_PATH_KERNELS if launched[k] == 0]
+        check(not missing, f"13(b): kernels of the path never launched: "
+                           f"{missing} ({launched})")
+        check(is_materialized(post), "13(b): the post-state left the device")
+        check(post.tree_hash_root() == bytes(block.state_root),
+              "13(b): post-state root != the host oracle's")
+        del post
+        print(f"13(b) counted run: materialize {mat_ms:.1f} ms, uncached "
+              f"root {unc_ms:.1f} ms, cold import {cold['wall_ms']:.1f} ms; "
+              f"launches {launched}; ledger h2d {moved['h2d']} B, d2h "
+              f"{moved['d2h']} B [{hw['card']}]")
+
+        # the epoch transition at this width: sweep on the card vs numpy
+        epoch, posts = {}, {}
+        for sweep in ("1", "0"):
+            os.environ["LIGHTHOUSE_TPU_EPOCH_DEVICE"] = sweep
+            st = parent.copy()
+            posts[sweep], ms = timed(torch, lambda: process_slots(
+                st, slot, preset, spec, T))
+            epoch[sweep] = {
+                "process_slots_ms": ms,
+                "device": bool(PE.LAST_EPOCH_TIMINGS.get("device")),
+                **{k: v for k, v in PE.LAST_EPOCH_TIMINGS.items()
+                   if isinstance(v, float)}}
+        os.environ.pop("LIGHTHOUSE_TPU_EPOCH_DEVICE", None)
+        check(epoch["1"]["device"] and not epoch["0"]["device"],
+              "13(b): the sweep did not run where the knob put it")
+        a, b = posts["1"], posts["0"]
+        check(a.tree_hash_root() == b.tree_hash_root()
+              and type(a).serialize(a) == type(b).serialize(b),
+              "13(b): the epoch post-state with the sweep on the card != "
+              "the numpy sweep's (raw)")
+        del posts, a, b, st
+
+        runs = []
+        for _ in range(IMPORT_WARM_RUNS):
+            zero_all_launches()
+            post, r = timed_import(torch, chain(), sb)
+            r["launches"] = all_launches()
+            check(post.tree_hash_root() == bytes(block.state_root),
+                  "13(b): warm post-state root != the host oracle's")
+            runs.append(r)
+            del post
+        prof = profile_call(torch, hw, "13(b) warm block import",
+                            lambda: chain().import_block(sb), kernel_ms)
+        python_profile(torch, "13(b) warm block import",
+                       lambda: chain().import_block(sb))
+    finally:
+        TRACER.disable()
+        os.environ.pop("LIGHTHOUSE_TPU_EPOCH_DEVICE", None)
+
+    def med(get):
+        vals = [get(r) for r in runs]
+        vals = [v for v in vals if v is not None]
+        return statistics.median(vals) if vals else None
+
+    stages = {k: med(lambda r, k=k: r.get(k)) for k in
+              ["wall_ms"] + [f"{s}_ms" for s in IMPORT_SPANS]}
+    sig = {k: med(lambda r, k=k: r["sig"].get(k)) for k in
+           ("device_verify_ms", "join_wait_ms", "overlap_efficiency")}
+    phases = {k: med(lambda r, k=k: r["block_phases"].get(k))
+              for k in runs[0]["block_phases"]}
+    launches = runs[-1]["launches"]
+    check(all(r["launches"] == launches for r in runs),
+          f"13(b): launches differ between warm imports: "
+          f"{[r['launches'] for r in runs]}")
+    summary = {
+        "validators": n, "slot": slot, "aggregates": n_atts,
+        "batch_sets": runs[-1]["sig"]["sets"],
+        "warm_runs": IMPORT_WARM_RUNS, "stages_ms": stages,
+        "sig_dispatch": sig, "block_phases_ms": phases,
+        "epoch_sweep_card": epoch["1"], "epoch_sweep_numpy": epoch["0"],
+        "launches_per_import": launches,
+        "ledger_per_import": {"h2d": med(lambda r: r["ledger"]["h2d"]),
+                              "d2h": med(lambda r: r["ledger"]["d2h"])},
+        "profile": {k: prof[k] for k in ("wall_ms", "busy_ms", "kernels")},
+        "idle_share": 1 - prof["busy_ms"] / prof["wall_ms"],
+        "card": hw["card"]}
+    print("13(b) block import at 2^%d validators (median of %d warm "
+          "imports, each on a fresh copy of the parent): %s" % (
+              n.bit_length() - 1, IMPORT_WARM_RUNS, json.dumps(summary)))
+    return summary
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--race-child"]:
         race_child(sys.argv[2])
@@ -2421,16 +3079,20 @@ def main() -> None:
     from lighthouse_tpu_torch.crypto import hash_to_curve as H2C
     t0 = time.perf_counter()
     n_keys = GEN_SETS * GEN_KEYS + BLOCK_AGGREGATES * COMMITTEE
-    keys = derive_g1_keys(F, C, GEN_SK0, GEN_SK_STEP, n_keys)
-    for v in (0, 1, 12345, n_keys - 1):
-        check(keys[v] == C.g1_mul(C.G1_GEN, GEN_SK0 + GEN_SK_STEP * v),
+    # phase 13(b)'s registry takes the same keys: derive them once
+    all_keys = derive_g1_keys(F, C, GEN_SK0, GEN_SK_STEP,
+                              max(n_keys, 1 << IMPORT_LOG2_VALIDATORS))
+    keys = all_keys[:n_keys]
+    for v in (0, 1, 12345, n_keys - 1, len(all_keys) - 1):
+        check(all_keys[v] == C.g1_mul(C.G1_GEN, GEN_SK0 + GEN_SK_STEP * v),
               f"derived key {v} != [sk]G")
     t_keys = time.perf_counter() - t0
     gsets = build_general_batch(bls, C, H2C, F, keys)
     t_gen = time.perf_counter() - t0 - t_keys
     block = build_block_batch(bls, C, H2C, F, keys,
                               np.random.default_rng(SEED + 6))
-    print(f"general-path set-up (host, pure Python): {n_keys} G1 keys in "
+    print(f"general-path set-up (host, pure Python): {len(all_keys)} G1 "
+          f"keys ({n_keys} for phases 7-11, all for phase 13) in "
           f"{t_keys:.1f} s, {GEN_SETS} signatures in {t_gen:.1f} s, the "
           f"block's {len(block[0])} sets in "
           f"{time.perf_counter() - t0 - t_keys - t_gen:.1f} s")
@@ -2447,6 +3109,11 @@ def main() -> None:
     pf = phase_profiles(torch, hw)
     phase_crossover(torch, hw, gsets, grand)
     phase_proof_engine(torch, hw, state.pop("state"))
+    phase_import_minimal(torch, hw)
+    imp = phase_import_mainnet(torch, hw, all_keys, {
+        **{k: t["ms"] for k, t in bk["timing"].items()},
+        **{k: t["ms"] for k, t in gk["timing"].items()}})
+    del all_keys
     from lighthouse_tpu_torch.common.device_ledger import LEDGER
     print("device ledger: " + json.dumps(LEDGER.snapshot()))
 
@@ -2475,7 +3142,8 @@ def main() -> None:
                "replaces": replaces[name], "launches": launches,
                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-               "library_ms": None}
+               "library_ms": None,
+               "launches_import": imp["launches_per_import"].get(name, 0)}
         if "chain_bound_ms" in t:      # a single dependent chain
             out.update({k: t[k] for k in ("chain_bound_ms", "chain_products",
                                           "rate_bound_ms", "binds")})

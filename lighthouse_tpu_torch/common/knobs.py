@@ -43,6 +43,13 @@ KNOBS = {
     "LIGHTHOUSE_TPU_SHARED_MIN": (
         8, "Batch size from which the collapsed shared-key verify path "
            "wins over the general path.", 1),
+    "LIGHTHOUSE_TPU_OVERLAP_BLOCK_SIGS": (
+        True, "Overlapped block import: dispatch the block's signature "
+              "batch asynchronously before the participation/rewards phase "
+              "(0 = trailing synchronous verify, the oracle)."),
+    "LIGHTHOUSE_TPU_EPOCH_DEVICE": (
+        False, "Run the fused epoch rewards/inactivity sweep as torch ops "
+               "on the device of the state's columns."),
 }
 
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 import secrets
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, Optional, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 from . import curve as C
 from . import fields as F
@@ -166,12 +166,47 @@ class Signature:
         return C.g2_compress(self.point)
 
 
+def aggregate_signatures(sigs: Iterable[Signature]) -> Signature:
+    """G2 sum; empty input yields the infinity signature."""
+    acc = None
+    for s in sigs:
+        if s.point is not None:
+            acc = C.g2_add(acc, s.point)
+    return Signature(acc)
+
+
 @dataclass(frozen=True)
 class SignatureSet:
     """{aggregate signature, signing keys, one message}."""
     signature: Optional[Signature]
     signing_keys: List[PublicKey]
     message: bytes
+
+
+def signature_set_key(s: SignatureSet) -> tuple:
+    """Exact-identity key of a set: (message, signature point, signing
+    key points).  Two sets with equal keys verify alike under any
+    backend."""
+    return (bytes(s.message),
+            None if s.signature is None else s.signature.point,
+            tuple(k.point for k in s.signing_keys))
+
+
+def dedup_signature_sets(sets: Sequence[SignatureSet]
+                         ) -> tuple[List[SignatureSet], int]:
+    """Drop exact-duplicate sets (same message, keys AND signature)
+    before a batch dispatch; returns ``(unique_sets, dropped)``.  The
+    verdict is unchanged: the random-linear-combination batch verifies
+    iff every distinct set does."""
+    seen: set = set()
+    out: List[SignatureSet] = []
+    for s in sets:
+        key = signature_set_key(s)
+        if key in seen:
+            continue
+        seen.add(key)
+        out.append(s)
+    return out, len(sets) - len(out)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ This system has no weights: its state is the BeaconState.  Two seams move
 it over without importing anything of the JAX package:
 
 - :func:`state_from_ssz` decodes the SSZ bytes of a state, which both
-  packages serialise identically;
+  packages serialise identically (:func:`signed_block_from_ssz` does the
+  same for a signed block);
 - :func:`registry_from_columns` builds the SoA validator registry from its
   columns as numpy arrays (``{name: column}`` for every name in
   ``ValidatorRegistry._COLUMNS``).
@@ -34,6 +35,13 @@ def state_from_ssz(data: bytes, preset, fork):
     ``ForkName`` of either package, or its value such as ``"capella"``)."""
     fork = ForkName(getattr(fork, "value", fork))
     return spec_types(_preset(preset)).state_cls(fork).deserialize(data)
+
+
+def signed_block_from_ssz(data: bytes, preset, fork):
+    """Decode ``data`` as the port's ``SignedBeaconBlock`` of ``fork``."""
+    fork = ForkName(getattr(fork, "value", fork))
+    return spec_types(_preset(preset)).signed_block_cls(fork).deserialize(
+        data)
 
 
 def registry_from_columns(cols: dict) -> ValidatorRegistry:

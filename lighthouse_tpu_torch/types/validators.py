@@ -113,6 +113,12 @@ class ValidatorRegistry:
         # re-diffing 130 MB of columns on every root at 2^20 validators).
         self._dirty_cols: set = set(self._COLUMNS)
         self._dirty_rows: set = set()
+        # Lazy pubkey → index map (the ``ValidatorPubkeyCache`` reverse
+        # lookup).  Shared by reference across ``copy()``; extension forks
+        # the dict first so a sharer never sees rows it does not have, and
+        # ``set()`` (the only in-place pubkey overwrite) invalidates.
+        self._pk_index: dict | None = None
+        self._pk_index_n = 0
         # Device mirror (device-resident raw columns + record-root tree),
         # attached by the device-resident hash cache; COW-shared across
         # copy().  None until materialized.
@@ -176,10 +182,40 @@ class ValidatorRegistry:
             if name not in self._COLUMNS:
                 raise KeyError(name)
             getattr(self, "_" + name)[:self._n] = arr
+        self._pk_index = None
+
+    def pubkey_index(self, pubkey: bytes) -> int | None:
+        """Index of ``pubkey`` in the registry (first occurrence), or None.
+        One lazy dict build per registry lineage; copies share it and
+        appended rows extend it incrementally."""
+        d = self._pk_index
+        if d is None:
+            d = {}
+            self._pk_index_n = 0
+        if self._pk_index_n < self._n:
+            if d:
+                d = dict(d)  # fork: never extend a possibly-shared dict
+            pks = self._pubkey
+            for i in range(self._pk_index_n, self._n):
+                d.setdefault(pks[i].tobytes(), i)
+            self._pk_index, self._pk_index_n = d, self._n
+        idx = d.get(pubkey)
+        if idx is None:
+            return None
+        if idx < self._n and self._pubkey[idx].tobytes() == pubkey:
+            return idx
+        # Stale entry (row overwritten under a shared dict): rebuild once.
+        d = {}
+        pks = self._pubkey
+        for i in range(self._n):
+            d.setdefault(pks[i].tobytes(), i)
+        self._pk_index, self._pk_index_n = d, self._n
+        return d.get(pubkey)
 
     def set(self, i: int, v: Validator) -> None:
         if not 0 <= i < self._n:
             raise IndexError(i)
+        self._pk_index = None  # a row overwrite may change a pubkey
         self._dirty_rows.add(i)
         self._pubkey[i] = np.frombuffer(v.pubkey, dtype=np.uint8)
         self._withdrawal_credentials[i] = np.frombuffer(
@@ -218,6 +254,8 @@ class ValidatorRegistry:
             setattr(out, "_" + name, getattr(self, "_" + name)[:self._n].copy())
         out._dirty_cols = set(self._dirty_cols)
         out._dirty_rows = set(self._dirty_rows)
+        out._pk_index = self._pk_index  # shared; forked on extension
+        out._pk_index_n = self._pk_index_n
         # COW: the clone shares every device buffer; the first write of
         # either lineage clones what it changes (DeviceRegistryMirror.
         # _own_cols), so cloning duplicates no device memory up front.

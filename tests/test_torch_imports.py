@@ -99,7 +99,7 @@ def test_default_device_is_cuda_and_raises_without_gpu(call,
 
 
 # The modules the native library, device ledger, chunk stager and proof
-# engine slice added.
+# engine slice added, then those of the block-import slice.
 _NEW_MODULES = [
     "lighthouse_tpu_torch.crypto.native",
     "lighthouse_tpu_torch.common.device_ledger",
@@ -108,6 +108,27 @@ _NEW_MODULES = [
     "lighthouse_tpu_torch.ops.merkle_proof",
     "lighthouse_tpu_torch.ops.proof_engine",
     "lighthouse_tpu_torch.parallel.pipeline",
+    "lighthouse_tpu_torch.common.safe_arith",
+    "lighthouse_tpu_torch.common.tracing",
+    "lighthouse_tpu_torch.state_transition",
+    "lighthouse_tpu_torch.state_transition.helpers",
+    "lighthouse_tpu_torch.state_transition.shuffle",
+    "lighthouse_tpu_torch.state_transition.committees",
+    "lighthouse_tpu_torch.state_transition.mutations",
+    "lighthouse_tpu_torch.state_transition.signature_sets",
+    "lighthouse_tpu_torch.state_transition.per_epoch",
+    "lighthouse_tpu_torch.state_transition.per_epoch_device",
+    "lighthouse_tpu_torch.state_transition.upgrade",
+    "lighthouse_tpu_torch.state_transition.per_block",
+    "lighthouse_tpu_torch.state_transition.sig_dispatch",
+    "lighthouse_tpu_torch.state_transition.per_slot",
+    "lighthouse_tpu_torch.state_transition.genesis",
+    "lighthouse_tpu_torch.beacon_chain",
+    "lighthouse_tpu_torch.beacon_chain.errors",
+    "lighthouse_tpu_torch.beacon_chain.observed",
+    "lighthouse_tpu_torch.beacon_chain.block_verification",
+    "lighthouse_tpu_torch.testing",
+    "lighthouse_tpu_torch.testing.harness",
 ]
 
 
