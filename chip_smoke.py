@@ -108,33 +108,56 @@ Phases, each of which fails the run with a non-zero exit:
     device→host bytes equal 32 × distinct nodes; ``ProofServer.
     field_branch`` for every field of the state equals a hashlib fold of
     the field roots to the state root.
-13. Block import through the three stages (gossip → signature-verified
-    → executed; the port has no ``chain.py`` yet, so ``ImportChain``
-    stands in for the chain).  (a) A MINIMAL Capella chain of 4 epochs
-    + 1 slot at 64 validators with real signatures (a deposit, an exit,
-    a proposer and an attester slashing), built by the port's
+13. Block import through the port's ``BeaconChain`` (gossip →
+    signature-verified → executed, then the store, fork choice on the
+    ``torch`` engine and the head).  (a) A MINIMAL Capella chain of 4
+    epochs + 1 slot at 64 validators with real signatures (a deposit, an
+    exit, a proposer and an attester slashing), built by the port's
     ``StateHarness`` on the host oracle (``LIGHTHOUSE_TPU_DEVICE_STATE=0``,
-    ``NO_VERIFICATION``), imported on a device-resident state with every
-    batch on the card (``LIGHTHOUSE_TPU_HOST_FASTPATH_MAX=0``), once with
-    the epoch sweep on numpy and once on the card: every post-state root
-    equals the block's, the final state the oracle's byte for byte; a
+    ``NO_VERIFICATION``), with each slot's unaggregated attestations and
+    one competing block on a side branch.  It runs first through a second
+    port chain on the CPU (numpy fork-choice engine, fake BLS backend),
+    then on the card through ``per_slot_task``, ``process_block`` and
+    ``process_attestation_batch`` over ``SqliteStore`` in a datadir under
+    ``build/``, on a device-resident genesis with every batch on the card
+    (``LIGHTHOUSE_TPU_HOST_FASTPATH_MAX=0``), once with the epoch sweep on
+    numpy and once on the card: after every step the head and the
+    justified and finalized checkpoints equal the CPU chain's, every
+    returned block root reloads from the store, the chain finalizes (the
+    freezer receives blocks), the head state equals the oracle's byte for
+    byte, and ``BeaconChain.resume`` on the datadir restores the head; a
     wrong attestation signature, state root and proposal signature raise
     ``InvalidSignatures``, ``StateRootMismatch`` and
-    ``ProposalSignatureInvalid``.  (b) One MAINNET Capella block at 2^20
-    validators (keys [0x10000 + 7v]G, the parent at the last slot of an
-    epoch, 128 aggregates of ~90% of their committees, a sync aggregate
-    of ~460 of 512, withdrawals), its state root from the port's host
-    oracle, imported with the defaults (device state, device BLS,
-    overlapped dispatch; the pubkey cache filled from the derived keys and
-    the registry's pubkey index built, as a running node's are warm).  Every launch counter is zeroed before
-    the parent's materialize and read after the first import: each
-    kernel of the path must have launched.  The epoch transition runs
-    with the sweep on the card and on numpy (post-states raw equal), then
-    3 warm imports on fresh copies of the parent give the median stage
-    split, the overlap, launches and ledger bytes per import, and one
-    more runs under torch.profiler (busy time, idle share).  Then the
-    device ledger's snapshot (with the caching allocator's memory
-    figures).
+    ``ProposalSignatureInvalid`` on chains booted with
+    ``from_checkpoint``.  (b) One MAINNET Capella block at 2^20
+    validators (keys [0x10000 + 7v]G, 128 aggregates of ~90% of their
+    committees, a sync aggregate of ~460 of 512, withdrawals), its state
+    root from the port's host oracle, imported by ``process_block`` on a
+    chain booted by ``BeaconChain.from_checkpoint`` from an anchor block
+    at the first slot of an epoch and its post-state (the block is the
+    next epoch's first slot, so the import crosses the empty slots and
+    the epoch transition); every chain is built anew, outside the timed
+    window, with the pubkey cache filled from the derived keys and the
+    registry's pubkey index built, as a running node's are warm.  Every
+    launch counter is zeroed before the anchor's materialize and read
+    after the first import: each kernel of the path must have launched,
+    and the head must become the block.  The slots to the block run with
+    the sweep on the card and on numpy (post-states raw equal), then 3
+    warm imports give the median stage split, the chain's own spans
+    (store, fork choice, attester cache, head), the overlap, launches and
+    ledger bytes per import, and one more runs under torch.profiler (busy
+    time, idle share).
+14. Fork choice at 2^20 validators: ``DeviceProtoArrayForkChoice`` on the
+    ``torch`` engine (the card) and on the ``numpy`` engine, a tree of 96
+    nodes over 3 epochs of slots with two forks, 8 head rounds with
+    proposer boost after 1/32 of the registry re-votes, the justified
+    balances changing once; the weights, best-child and best-descendant
+    columns, votes, balances and head equal exactly after every round;
+    ms per round (host clock ending in a sync), bytes up and down per
+    round (ledger), CUDA launches of one round (torch.profiler).  Then a
+    64-node chain with ``jit_max_depth`` forced to 16: its 4 rounds take
+    the host route, counted, and equal numpy's.  Then the device ledger's
+    snapshot (with the caching allocator's memory figures).
 
 The line before the last is one JSON object with each kernel's launches,
 error, time, plain-version time and bound (for every BLS kernel also its
@@ -2416,9 +2439,12 @@ def phase_proof_engine(torch, hw: dict, state) -> dict:
 
 IMPORT_SMALL_VALIDATORS = 64
 IMPORT_SMALL_SLOTS = 4 * 8 + 1       # 4 MINIMAL epochs + 1 slot
+IMPORT_SIDE_AT = 13                  # the side block extends this slot's
+#                                      parent, at the next slot
 IMPORT_LOG2_VALIDATORS = 20
-IMPORT_EPOCH = 1000                  # its end crosses no sync-committee,
-#                                      historical or eth1-voting boundary
+IMPORT_EPOCH = 1000                  # the anchor's epoch: its end crosses
+#                                      no sync-committee, historical or
+#                                      eth1-voting boundary
 IMPORT_GENESIS_TIME = 1_606_824_023
 IMPORT_WARM_RUNS = 3
 IMPORT_PATH_KERNELS = ("hash64", "subtree", "hash_g2", "prepare", "sigma",
@@ -2426,58 +2452,11 @@ IMPORT_PATH_KERNELS = ("hash64", "subtree", "hash_g2", "prepare", "sigma",
                        "finalize")
 IMPORT_SPANS = ("gossip_verify", "epoch_transition", "state_transition",
                 "post_state_root", "sig_join")
-
-
-class ImportChain:
-    """The slice of a beacon chain the three block-import stages read
-    (the port has no ``chain.py`` yet): block roots map to post-states,
-    the clock is the newest block's slot, and chains may share one
-    ``PubkeyCache``."""
-
-    def __init__(self, anchor, anchor_root: bytes, preset, spec, T,
-                 pubkey_cache=None):
-        from lighthouse_tpu_torch.beacon_chain.observed import \
-            ObservedBlockProducers
-        from lighthouse_tpu_torch.state_transition.signature_sets import \
-            PubkeyCache
-        self.preset, self.spec, self.T = preset, spec, T
-        self.pubkey_cache = pubkey_cache or PubkeyCache()
-        self.payload_verifier = None
-        self.observed_block_producers = ObservedBlockProducers()
-        self._advanced_states = {}
-        self.fork_choice = self
-        self.slot = int(anchor.slot)
-        self._states = {bytes(anchor_root): anchor}
-
-    def current_slot(self) -> int:
-        return self.slot
-
-    def contains_block(self, root: bytes) -> bool:
-        return bytes(root) in self._states
-
-    def state_at_block_root(self, root: bytes):
-        return self._states[bytes(root)].copy()
-
-    def import_block(self, signed_block):
-        from lighthouse_tpu_torch.beacon_chain import block_verification as BV
-        self.slot = max(self.slot, int(signed_block.message.slot))
-        g = BV.GossipVerifiedBlock.new(self, signed_block)
-        sv = BV.SignatureVerifiedBlock.from_gossip_verified(self, g)
-        ex = BV.ExecutedBlock.from_signature_verified(self, sv)
-        self._states[ex.block_root] = ex.post_state
-        return ex.post_state
-
-
-def latest_block_root(state, T) -> bytes:
-    """The root of the block ``state`` is the post-state of (its header
-    with the state root filled in, as the next ``process_slot`` does)."""
-    h = state.latest_block_header
-    sr = bytes(h.state_root)
-    if sr == b"\x00" * 32:
-        sr = state.tree_hash_root()
-    return T.BeaconBlockHeader(slot=h.slot, proposer_index=h.proposer_index,
-                               parent_root=h.parent_root, state_root=sr,
-                               body_root=h.body_root).tree_hash_root()
+CHAIN_SPANS = ("block_import", "store_put", "fork_choice_on_block",
+               "attester_cache_prime", "fork_choice_attestations",
+               "head_update", "compute_deltas", "apply_scores", "persist",
+               "migrate_to_cold")
+DATADIR_ROOT = os.path.join("build", "chip_smoke_datadir")
 
 
 def all_launches() -> dict:
@@ -2494,9 +2473,73 @@ def zero_all_launches() -> None:
     zero_launches(mk.LAUNCHES, HK.LAUNCHES, PK.LAUNCHES)
 
 
+def genesis_chain(state, preset, spec, T, kv_path=None):
+    """A port ``BeaconChain`` at the genesis ``state``, over a
+    ``SqliteStore`` at ``kv_path`` or an in-memory store."""
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain
+    from lighthouse_tpu_torch.store import HotColdDB, SqliteStore
+    hdr = state.latest_block_header.copy()
+    hdr.state_root = state.tree_hash_root()
+    db = (HotColdDB.memory(preset, spec, T) if kv_path is None
+          else HotColdDB(SqliteStore(kv_path), preset, spec, T))
+    return BeaconChain(store=db, genesis_state=state,
+                       genesis_block_root=hdr.tree_hash_root(),
+                       preset=preset, spec=spec, T=T)
+
+
+def checkpoint_chain(anchor_state, anchor_block, preset, spec, T,
+                     pubkey_cache=None):
+    """A port ``BeaconChain`` booted from ``anchor_block`` and its
+    post-state (``from_checkpoint``) over an in-memory store; a running
+    node's warm ``pubkey_cache`` may be handed in."""
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain
+    from lighthouse_tpu_torch.store import HotColdDB
+    chain = BeaconChain.from_checkpoint(
+        store=HotColdDB.memory(preset, spec, T), anchor_state=anchor_state,
+        anchor_block=anchor_block, preset=preset, spec=spec, T=T)
+    if pubkey_cache is not None:
+        chain.pubkey_cache = pubkey_cache
+    return chain
+
+
+def chain_head(chain) -> tuple:
+    fc = chain.fork_choice
+    return (chain.head.root, chain.head.slot, fc.justified_checkpoint,
+            fc.finalized_checkpoint)
+
+
+def run_steps(chain, steps, on_step=None) -> list:
+    """Drive ``chain`` through ``steps`` — ``("tick", slot)``,
+    ``("block", signed_block)``, ``("atts", [attestation, ...])`` — and
+    return the head after each; ``on_step(i, root_or_None)`` runs after
+    each step.  Every returned block root must be stored and reload."""
+    heads = []
+    for i, step in enumerate(steps):
+        root = None
+        if step[0] == "tick":
+            chain.per_slot_task(step[1])
+        elif step[0] == "block":
+            sb = step[1]
+            root = chain.process_block(sb, is_timely=True)
+            got = chain.store.get_block(root)
+            check(got is not None and type(got).serialize(got)
+                  == type(sb).serialize(sb),
+                  f"13(a): block {root.hex()[:12]} did not reload")
+        else:
+            res = chain.process_attestation_batch(step[1])
+            check(all(v is not None for v, _ in res),
+                  f"13(a): an attestation was refused: "
+                  f"{[repr(e) for _, e in res if e is not None][:3]}")
+        heads.append(chain_head(chain))
+        if on_step is not None:
+            on_step(i, root)
+    return heads
+
+
 def import_expecting(chain, sb, error_cls) -> None:
     try:
-        chain.import_block(sb)
+        chain.per_slot_task(int(sb.message.slot))
+        chain.process_block(sb)
     except error_cls:
         return
     except Exception as e:  # noqa: BLE001 — reported as the failure
@@ -2544,10 +2587,21 @@ def tamper_imports(chain_fn, sb, parent_state, sk_of, preset, fork) -> list:
     return out
 
 
+def span_split(TRACER, slot: int, names) -> dict:
+    """``{name}_ms`` summed over the tracer's spans of ``slot``."""
+    out = {}
+    for s in TRACER.slot_spans(slot):
+        if s["name"] in names:
+            out[s["name"] + "_ms"] = out.get(s["name"] + "_ms", 0.0) \
+                + s["dur_us"] / 1e3
+    return out
+
+
 def timed_import(torch, chain, sb) -> tuple:
-    """One import through the stages, fenced by device syncs: its wall,
-    the stage spans of the tracer, the signature dispatch's stats, the
-    block's phase split and the ledger's bytes."""
+    """One ``process_block`` on ``chain``, fenced by device syncs: its
+    wall, the stage spans and the chain's own spans of the tracer, the
+    signature dispatch's stats, the block's phase split and the ledger's
+    bytes."""
     from lighthouse_tpu_torch.common.device_ledger import LEDGER
     from lighthouse_tpu_torch.common.tracing import TRACER
     from lighthouse_tpu_torch.state_transition import per_block as PB
@@ -2556,30 +2610,98 @@ def timed_import(torch, chain, sb) -> tuple:
     TRACER.reset()
     TRACER.set_slot(slot)
     ledger0 = LEDGER.transfer_totals()
-    post, wall = timed(torch, lambda: chain.import_block(sb))
-    spans = {}
-    for s in TRACER.slot_spans(slot):
-        if s["name"] in IMPORT_SPANS:
-            spans[s["name"] + "_ms"] = spans.get(s["name"] + "_ms", 0.0) \
-                + s["dur_us"] / 1e3
+    root, wall = timed(torch, lambda: chain.process_block(sb,
+                                                          is_timely=True))
     sig = {k: SD.LAST_SIG_DISPATCH.get(k) for k in
            ("sets", "deduped", "path", "device_verify_ms", "join_wait_ms",
             "overlap_efficiency")}
-    return post, {"wall_ms": wall, **spans, "sig": sig,
+    return root, {"wall_ms": wall, **span_split(TRACER, slot, IMPORT_SPANS),
+                  "chain": span_split(TRACER, slot, CHAIN_SPANS), "sig": sig,
                   "block_phases": dict(PB.LAST_BLOCK_TIMINGS),
                   "ledger": ledger_moved(LEDGER, ledger0)}
+
+
+def build_minimal_steps(h):
+    """The harness's chain as chain steps: each block at its slot, then
+    the next slot's tick and that block's slot's unaggregated
+    attestations (every committee member, real signatures); after the
+    block at ``IMPORT_SIDE_AT`` a competing block from the next slot's
+    proposer on the same parent (the canonical chain skips that slot).
+    Returns (steps, blocks) — ``blocks`` the canonical ones."""
+    from lighthouse_tpu_torch.state_transition import SignatureStrategy
+    from lighthouse_tpu_torch.state_transition.per_slot import process_slots
+    steps, blocks, i = [], [], 0
+    while int(h.state.slot) < IMPORT_SMALL_SLOTS:
+        kw = {}
+        if i == 3:
+            h.make_deposit(IMPORT_SMALL_VALIDATORS)
+        elif i == 6:
+            kw["voluntary_exits"] = [h.make_exit(h.state, 5)]
+        elif i == 9:
+            kw["proposer_slashings"] = [h.make_proposer_slashing(h.state, 3)]
+        elif i == 12:
+            kw["attester_slashings"] = [
+                h.make_attester_slashing(h.state, [10, 11])]
+        slot = int(h.state.slot) + 1
+        if slot == IMPORT_SIDE_AT + 1:
+            slot += 1
+        parent = h.state.copy()
+        sb = h.build_block(slot, **kw)
+        h.apply_block(sb, strategy=SignatureStrategy.NO_VERIFICATION)
+        blocks.append(sb)
+        adv = process_slots(h.state.copy(), slot + 1, h.preset, h.spec, h.T)
+        steps += [("tick", slot), ("block", sb), ("tick", slot + 1),
+                  ("atts", h.single_attestations_for_slot(adv, slot))]
+        if slot == IMPORT_SIDE_AT:
+            live, h.state = h.state, parent
+            side = h.build_block(slot + 1,
+                                 graffiti=b"side".ljust(32, b"\x00"))
+            h.state = live
+            steps.append(("block", side))
+        i += 1
+    return steps, blocks
+
+
+def cpu_reference_heads(genesis, steps, preset, spec, T) -> list:
+    """The same steps through a second port chain on the CPU (the port's
+    device set to cpu, the numpy fork-choice engine, the fake BLS
+    backend: the blocks and attestations were verified on the card), from
+    genesis carried by its SSZ bytes: the head after each step."""
+    from lighthouse_tpu_torch import device
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.types import ForkName
+    prev = (device.default_device(), bls._active)
+    device.set_default_device("cpu")
+    bls.set_backend("fake")
+    try:
+        state = T.state_cls(ForkName.CAPELLA).deserialize(
+            type(genesis).serialize(genesis))
+        chain = genesis_chain(state, preset, spec, T)
+        check(chain.fork_choice.proto.engine == "numpy",
+              "13(a): the CPU chain's fork choice is not the numpy engine")
+        return run_steps(chain, steps)
+    finally:
+        device.set_default_device(prev[0])
+        bls._active = prev[1]
 
 
 def phase_import_minimal(torch, hw: dict) -> dict:
     """13(a): a MINIMAL Capella chain of 4 epochs + 1 slot at 64
     validators with real signatures, built by the port's harness on the
-    host oracle (``LIGHTHOUSE_TPU_DEVICE_STATE=0``, ``NO_VERIFICATION``),
-    imported through the three stages on a device-resident anchor with
-    every batch on the device (fast path off), once with the epoch sweep
-    on numpy and once on the card; every post-state root must equal the
-    block's, and three tamper classes raise the reference's errors."""
-    from lighthouse_tpu_torch.state_transition import (SignatureStrategy,
-                                                       interop_secret_key)
+    host oracle (``LIGHTHOUSE_TPU_DEVICE_STATE=0``, ``NO_VERIFICATION``)
+    with each slot's unaggregated attestations and one competing block,
+    driven through ``BeaconChain`` (``per_slot_task``, ``process_block``,
+    ``process_attestation_batch``) on a device-resident genesis over
+    ``SqliteStore`` in a datadir under ``build/``, with every batch on
+    the card (fast path off) and fork choice on the ``torch`` engine, once
+    with the epoch sweep on numpy and once on the card.  After every step
+    the head and the justified and finalized checkpoints equal a second
+    port chain's on the CPU; the chain finalizes; ``resume`` on the
+    datadir restores the head; three tamper classes raise the
+    reference's errors."""
+    from lighthouse_tpu_torch.beacon_chain import BeaconChain
+    from lighthouse_tpu_torch.state_transition import interop_secret_key
+    from lighthouse_tpu_torch.store import HotColdDB, SqliteStore
     from lighthouse_tpu_torch.testing import StateHarness
     from lighthouse_tpu_torch.types.device_state import (is_materialized,
                                                          materialize_state)
@@ -2590,79 +2712,92 @@ def phase_import_minimal(torch, hw: dict) -> dict:
         h = StateHarness(IMPORT_SMALL_VALIDATORS)
         h.spec.shard_committee_period = 0     # exits from genesis on
         genesis = h.state.copy()
-        blocks, i = [], 0
-        while int(h.state.slot) < IMPORT_SMALL_SLOTS:
-            kw = {}
-            if i == 3:
-                h.make_deposit(IMPORT_SMALL_VALIDATORS)
-            elif i == 6:
-                kw["voluntary_exits"] = [h.make_exit(h.state, 5)]
-            elif i == 9:
-                kw["proposer_slashings"] = [
-                    h.make_proposer_slashing(h.state, 3)]
-            elif i == 12:
-                kw["attester_slashings"] = [
-                    h.make_attester_slashing(h.state, [10, 11])]
-            sb = h.build_block(**kw)
-            blocks.append(sb)
-            h.apply_block(sb, strategy=SignatureStrategy.NO_VERIFICATION)
-            i += 1
+        steps, blocks = build_minimal_steps(h)
     finally:
         os.environ.pop("LIGHTHOUSE_TPU_DEVICE_STATE", None)
     final = h.state
     check(len(final.validators) == IMPORT_SMALL_VALIDATORS + 1
           and int(final.finalized_checkpoint.epoch) >= 1,
           "13(a): the harness chain lacks its deposit or finality")
+    n_atts = sum(len(s[1]) for s in steps if s[0] == "atts")
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = cpu_reference_heads(genesis, steps, h.preset, h.spec, h.T)
+    cpu_s = time.perf_counter() - t0
+    check(want[-1][3][0] >= 1, "13(a): the CPU chain did not finalize")
     fork = h.fork_at(IMPORT_SMALL_SLOTS)
     os.environ["LIGHTHOUSE_TPU_HOST_FASTPATH_MAX"] = "0"
+    shutil.rmtree(DATADIR_ROOT, ignore_errors=True)
+    os.makedirs(DATADIR_ROOT)
     out = {}
     try:
-        # untimed: the first blocks once, so neither timed run is the
+        # untimed: the first steps once, so neither timed run is the
         # cold one (device key table, allocator)
         anchor = genesis.copy()
         materialize_state(anchor)
-        chain = ImportChain(anchor, latest_block_root(anchor, h.T), h.preset,
-                            h.spec, h.T)
-        for sb in blocks[:3]:
-            chain.import_block(sb)
+        run_steps(genesis_chain(anchor, h.preset, h.spec, h.T), steps[:12])
         for sweep in ("0", "1"):
             os.environ["LIGHTHOUSE_TPU_EPOCH_DEVICE"] = sweep
             anchor = genesis.copy()
             check(materialize_state(anchor), "13(a): materialize refused")
-            chain = ImportChain(anchor, latest_block_root(anchor, h.T),
-                                h.preset, h.spec, h.T)
+            path = os.path.join(DATADIR_ROOT, f"sweep{sweep}.sqlite")
+            chain = genesis_chain(anchor, h.preset, h.spec, h.T, path)
+            check(chain.fork_choice.proto.engine == "torch",
+                  "13(a): fork choice is not on the torch engine")
+
+            def on_step(i, root, chain=chain, sweep=sweep):
+                check(chain_head(chain) == want[i],
+                      f"13(a): head after step {i} ({steps[i][0]}) != the "
+                      f"CPU chain's (sweep {sweep}): "
+                      f"{chain_head(chain)} vs {want[i]}")
+                if root is not None:
+                    check(is_materialized(chain._states_by_block[root]),
+                          "13(a): a post-state left the device")
+
             zero_all_launches()
             t1 = time.perf_counter()
-            post = anchor
-            for sb in blocks:
-                post = chain.import_block(sb)
-                check(is_materialized(post), "13(a): a post-state left the "
-                                             "device")
+            run_steps(chain, steps, on_step)
             ms = (time.perf_counter() - t1) * 1e3
             launched = all_launches()
-            check(type(post).serialize(post) == type(final).serialize(final),
-                  f"13(a): final state != the host oracle's (sweep {sweep})")
+            post = chain.head.state
+            check(chain.head.root == blocks[-1].message.tree_hash_root()
+                  and type(post).serialize(post)
+                  == type(final).serialize(final),
+                  f"13(a): the head state != the host oracle's "
+                  f"(sweep {sweep})")
             check(all(launched[k] > 0 for k in IMPORT_PATH_KERNELS
                       if k != "subtree"),
                   f"13(a): a kernel of the path never launched: {launched}")
-            out[sweep] = {"ms": ms, "launches": launched}
+            check(chain.store.split_slot > 0,
+                  "13(a): finalization migrated nothing to the freezer")
+            live = chain_head(chain)
+            fc_rounds = chain.fork_choice.proto.host_rounds
+            chain.store.kv.close()
+            db = HotColdDB(SqliteStore(path), h.preset, h.spec, h.T)
+            resumed = BeaconChain.resume(store=db, preset=h.preset,
+                                         spec=h.spec, T=h.T)
+            check(chain_head(resumed) == live,
+                  f"13(a): resume restored {chain_head(resumed)}, not the "
+                  f"live head {live}")
+            check(resumed.head.state.tree_hash_root()
+                  == final.tree_hash_root(),
+                  "13(a): the resumed head state's root != the oracle's")
+            db.kv.close()
+            out[sweep] = {"ms": ms, "launches": launched,
+                          "host_rounds": fc_rounds,
+                          "replayed": len(resumed.last_recovery.replayed)}
         os.environ.pop("LIGHTHOUSE_TPU_EPOCH_DEVICE", None)
         k = 10
-        anchor = genesis.copy()
-        materialize_state(anchor)
-        chain = ImportChain(anchor, latest_block_root(anchor, h.T), h.preset,
-                            h.spec, h.T)
-        parent = anchor
+        parent_chain = genesis_chain(genesis.copy(), h.preset, h.spec, h.T)
+        materialize_state(parent_chain.head.state)
         for sb in blocks[:k]:
-            parent = chain.import_block(sb)
-        parent_root = bytes(blocks[k].message.parent_root)
+            parent_chain.per_slot_task(int(sb.message.slot))
+            root = parent_chain.process_block(sb)
+        parent = parent_chain.state_at_block_root(root)
 
         def fresh():
-            c = ImportChain(parent, parent_root, h.preset, h.spec, h.T,
-                            chain.pubkey_cache)
-            c.slot = chain.slot
-            return c
+            return checkpoint_chain(parent.copy(), blocks[k - 1], h.preset,
+                                    h.spec, h.T, parent_chain.pubkey_cache)
 
         tampers = tamper_imports(
             fresh, blocks[k], parent,
@@ -2670,26 +2805,39 @@ def phase_import_minimal(torch, hw: dict) -> dict:
     finally:
         os.environ.pop("LIGHTHOUSE_TPU_HOST_FASTPATH_MAX", None)
         os.environ.pop("LIGHTHOUSE_TPU_EPOCH_DEVICE", None)
-    print(f"13(a) MINIMAL chain: {len(blocks)} blocks to slot "
-          f"{int(final.slot)} (a deposit, an exit, a proposer and an "
-          f"attester slashing; finalized epoch "
-          f"{int(final.finalized_checkpoint.epoch)}), built on the host "
-          f"oracle in {build_s:.1f} s; imported through the three stages "
-          f"on the device state with every batch on the card (after an "
-          f"untimed pass over 3 blocks): {out['0']['ms']:.0f} ms (numpy "
-          f"sweep), {out['1']['ms']:.0f} ms (sweep on the card), every post-state root equal to the "
-          f"block's and the final state byte-equal to the oracle's; "
-          f"launches {out['1']['launches']}; tampers: {'; '.join(tampers)}"
-          f" [{hw['card']}]")
+        shutil.rmtree(DATADIR_ROOT, ignore_errors=True)
+    heads = {w[0] for w in want}
+    print(f"13(a) MINIMAL chain through BeaconChain: {len(blocks)} blocks "
+          f"to slot {int(final.slot)} and a competing block at slot "
+          f"{IMPORT_SIDE_AT + 1} (a deposit, an exit, a proposer and an "
+          f"attester slashing; {n_atts} unaggregated attestations in "
+          f"{sum(s[0] == 'atts' for s in steps)} batches; finalized epoch "
+          f"{want[-1][3][0]}, {len(heads)} distinct heads), built on the "
+          f"host oracle in {build_s:.1f} s, the CPU chain's heads in "
+          f"{cpu_s:.1f} s; on the card over SQLite with every batch on the "
+          f"card and fork choice on the torch engine ({len(steps)} steps, "
+          f"after an untimed pass over 12): {out['0']['ms']:.0f} ms (numpy "
+          f"sweep), {out['1']['ms']:.0f} ms (sweep on the card); every head "
+          f"and checkpoint equal to the CPU chain's, the head state "
+          f"byte-equal to the oracle's, resume restored the head "
+          f"(replayed {out['1']['replayed']} journaled imports); host-route "
+          f"fork-choice rounds {out['1']['host_rounds']}; launches "
+          f"{out['1']['launches']}; tampers: {'; '.join(tampers)} "
+          f"[{hw['card']}]")
     return out
 
 
 def build_import_parent(T, spec, preset, C, bls, keys, rng):
-    """A MAINNET Capella state of ``len(keys)`` active validators at the
-    last slot of ``IMPORT_EPOCH``: validator v's key is [0x10000 + 7v]G,
-    ~90% of both epochs' participation flags set, a sync committee of
-    512 distinct validators, execution-address credentials with a small
-    excess balance (partial withdrawals)."""
+    """A checkpoint anchor: a MAINNET Capella block at the first slot of
+    ``IMPORT_EPOCH`` and its post-state of ``len(keys)`` active
+    validators (validator v's key is [0x10000 + 7v]G, ~90% of both
+    epochs' participation flags set, a sync committee of 512 distinct
+    validators, execution-address credentials with a small excess balance
+    for partial withdrawals).  The anchor sits at an epoch boundary, as a
+    checkpoint sync's does, so the epoch's justification names it and
+    fork choice knows the justified root.  Returns (state, the sync
+    committee's indices, the anchor block with its state root left for
+    the caller to fill in)."""
     from lighthouse_tpu_torch.types import ForkName
     from lighthouse_tpu_torch.types.validators import ValidatorRegistry
     n = len(keys)
@@ -2712,7 +2860,7 @@ def build_import_parent(T, spec, preset, C, bls, keys, rng):
     state = T.state_cls(ForkName.CAPELLA)()
     state.genesis_time = IMPORT_GENESIS_TIME
     state.genesis_validators_root = rng.bytes(32)
-    state.slot = e * slots + slots - 1
+    state.slot = e * slots
     version = spec.fork_version(ForkName.CAPELLA)
     state.fork = T.Fork(previous_version=version, current_version=version,
                         epoch=0)
@@ -2724,10 +2872,11 @@ def build_import_parent(T, spec, preset, C, bls, keys, rng):
     state.eth1_data = T.Eth1Data(deposit_root=rng.bytes(32),
                                  deposit_count=n, block_hash=rng.bytes(32))
     state.eth1_deposit_index = n
+    anchor_body = T.body_cls(ForkName.CAPELLA)()
     state.latest_block_header = T.BeaconBlockHeader(
         slot=int(state.slot), proposer_index=int(rng.integers(n)),
         parent_root=rng.bytes(32), state_root=b"\x00" * 32,
-        body_root=rng.bytes(32))
+        body_root=anchor_body.tree_hash_root())
     for name in ("previous_epoch_participation",
                  "current_epoch_participation"):
         flags = np.where(rng.random(n) < 0.9, 7,
@@ -2758,7 +2907,14 @@ def build_import_parent(T, spec, preset, C, bls, keys, rng):
         timestamp=IMPORT_GENESIS_TIME + int(state.slot) * 12,
         prev_randao=rng.bytes(32))
     state.next_withdrawal_validator_index = int(rng.integers(n))
-    return state, sync
+    hdr = state.latest_block_header
+    anchor = T.signed_block_cls(ForkName.CAPELLA)(
+        message=T.block_cls(ForkName.CAPELLA)(
+            slot=hdr.slot, proposer_index=hdr.proposer_index,
+            parent_root=hdr.parent_root, state_root=b"\x00" * 32,
+            body=anchor_body),
+        signature=bls.INFINITY_SIGNATURE)
+    return state, sync, anchor
 
 
 def build_import_block(T, spec, preset, bls, adv, sync, rng):
@@ -2865,11 +3021,17 @@ def python_profile(torch, label: str, fn, top: int = 12) -> None:
 
 def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
     """13(b): one MAINNET Capella block at ``len(keys)`` validators,
-    imported through the three stages with the defaults (device-resident
-    state, device BLS, overlapped dispatch); its state root comes from the
-    port's host oracle (``LIGHTHOUSE_TPU_DEVICE_STATE=0``,
-    ``NO_VERIFICATION``).  The parent is at the last slot of an epoch, so
-    the gossip stage's ``process_slots`` runs the epoch transition."""
+    imported by ``BeaconChain.process_block`` with the defaults
+    (device-resident state, device BLS, overlapped dispatch, fork choice
+    on the torch engine) on a chain booted by ``from_checkpoint`` from an
+    anchor at the first slot of an epoch; each import runs on a chain
+    built anew from the checkpoint, outside the timed window.  The block
+    is the next epoch's first slot, so the gossip stage's
+    ``process_slots`` crosses the epoch's empty slots and runs the epoch
+    transition; its state root comes from the port's host oracle
+    (``LIGHTHOUSE_TPU_DEVICE_STATE=0``, ``NO_VERIFICATION``).  Its 128
+    aggregates feed fork choice at 2^20 votes and the head must become
+    the block."""
     from lighthouse_tpu_torch.common.device_ledger import LEDGER
     from lighthouse_tpu_torch.common.tracing import TRACER
     from lighthouse_tpu_torch.crypto import bls
@@ -2893,14 +3055,16 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
     n = len(keys)
     rng = np.random.default_rng(SEED + 13)
     t0 = time.perf_counter()
-    parent, sync = build_import_parent(T, spec, preset, C, bls, keys, rng)
-    slot = int(parent.slot) + 1
+    parent, sync, anchor = build_import_parent(T, spec, preset, C, bls, keys,
+                                               rng)
+    slot = int(parent.slot) + preset.SLOTS_PER_EPOCH
     t_state = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     os.environ["LIGHTHOUSE_TPU_DEVICE_STATE"] = "0"
     try:
         adv = process_slots(parent.copy(), slot, preset, spec, T)
+        anchor.message.state_root = bytes(adv.latest_block_header.state_root)
         block, proposer, n_sync, signers = build_import_block(
             T, spec, preset, bls, adv, sync, rng)
         scratch = adv.copy()
@@ -2911,13 +3075,21 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
         block.state_root = scratch.tree_hash_root()
         domain = get_domain(adv, Domain.BEACON_PROPOSER,
                             slot // preset.SLOTS_PER_EPOCH, preset)
+        want_jcp = (int(scratch.current_justified_checkpoint.epoch),
+                    bytes(scratch.current_justified_checkpoint.root))
     finally:
         os.environ.pop("LIGHTHOUSE_TPU_DEVICE_STATE", None)
     sb = T.signed_block_cls(ForkName.CAPELLA)(
         message=block, signature=bls.SecretKey(
             GEN_SK0 + GEN_SK_STEP * proposer).sign(
             compute_signing_root(block, domain)).serialize())
-    parent_root = bytes(block.parent_root)
+    anchor_root = anchor.message.tree_hash_root()
+    block_root = block.tree_hash_root()
+    check(bytes(block.parent_root) == anchor_root,
+          "13(b): the block's parent root != the anchor block's root")
+    check(want_jcp == (IMPORT_EPOCH, anchor_root),
+          f"13(b): the block's justified checkpoint {want_jcp} is not the "
+          f"anchor's epoch and root")
     del adv, scratch
     t_block = time.perf_counter() - t0
     # a running node's pubkey cache is warm: fill it from the derived keys
@@ -2931,45 +3103,69 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
     check(parent.validators.pubkey_index(col[proposer].tobytes())
           == proposer, "13(b): the registry's pubkey index is wrong")
     n_atts = len(block.body.attestations)
-    print(f"13(b) set-up (host): the {n}-validator parent state in "
-          f"{t_state:.1f} s; the block at slot {slot} ({n_atts} aggregates "
-          f"of {len(signers)} signers, sync {n_sync}/{len(sync)}, "
+    print(f"13(b) set-up (host): the {n}-validator anchor state at slot "
+          f"{int(parent.slot)} in {t_state:.1f} s; the block at slot {slot} "
+          f"({n_atts} aggregates of {len(signers)} signers, sync "
+          f"{n_sync}/{len(sync)}, "
           f"{len(block.body.execution_payload.withdrawals)} withdrawals) "
           f"and its state root on the host oracle in {t_block:.1f} s")
 
+    build_s = []
+
     def chain():
-        return ImportChain(parent, parent_root, preset, spec, T, cache)
+        """A chain booted from the checkpoint, ticked to the block's slot
+        (fork choice only: no pre-advance, so the import runs the epoch
+        transition as a node without the state-advance timer does)."""
+        t = time.perf_counter()
+        c = checkpoint_chain(parent, anchor, preset, spec, T, cache)
+        c.fork_choice.on_tick(slot)
+        check(c.fork_choice.proto.engine == "torch",
+              "13(b): fork choice is not on the torch engine")
+        build_s.append(time.perf_counter() - t)
+        return c
+
+    def imported(c, root) -> None:
+        check(root == block_root and c.head.root == block_root
+              and c.head.slot == slot,
+              f"13(b): the head is {c.head.root.hex()[:12]} at "
+              f"{c.head.slot}, not the block")
+        post = c.state_at_block_root(root)
+        check(is_materialized(post), "13(b): the post-state left the device")
+        check(post.tree_hash_root() == bytes(block.state_root),
+              "13(b): post-state root != the host oracle's")
 
     TRACER.enable()
     try:
         # the path's counted run: the parent's device root (materialize),
-        # its uncached root, then the first import (cold device key table)
+        # its uncached root, then the first import (cold device key table,
+        # cold fork-choice mirrors)
         zero_all_launches()
         ledger0 = LEDGER.transfer_totals()
         _, mat_ms = timed(torch, lambda: check(materialize_state(parent),
                                                "materialize refused"))
         r_unc, unc_ms = timed(torch, lambda: type(parent).hash_tree_root(
             parent))
-        check(parent.tree_hash_root() == r_unc,
-              "13(b): the parent's device root != its uncached root")
-        check(latest_block_root(parent, T) == parent_root,
-              "13(b): the block's parent root != the device parent's root")
-        post, cold = timed_import(torch, chain(), sb)
+        check(parent.tree_hash_root() == r_unc == bytes(
+            anchor.message.state_root),
+            "13(b): the anchor's device root != its uncached root or the "
+            "host oracle's")
+        c = chain()
+        root, cold = timed_import(torch, c, sb)
+        imported(c, root)
         launched = all_launches()
         moved = ledger_moved(LEDGER, ledger0)
         missing = [k for k in IMPORT_PATH_KERNELS if launched[k] == 0]
         check(not missing, f"13(b): kernels of the path never launched: "
                            f"{missing} ({launched})")
-        check(is_materialized(post), "13(b): the post-state left the device")
-        check(post.tree_hash_root() == bytes(block.state_root),
-              "13(b): post-state root != the host oracle's")
-        del post
+        fc_votes = int((c.fork_choice.proto.votes.current >= 0).sum())
+        del c
         print(f"13(b) counted run: materialize {mat_ms:.1f} ms, uncached "
-              f"root {unc_ms:.1f} ms, cold import {cold['wall_ms']:.1f} ms; "
-              f"launches {launched}; ledger h2d {moved['h2d']} B, d2h "
-              f"{moved['d2h']} B [{hw['card']}]")
+              f"root {unc_ms:.1f} ms, cold import {cold['wall_ms']:.1f} ms "
+              f"(chain spans {json.dumps(cold['chain'])}); {fc_votes} "
+              f"fork-choice votes after it; launches {launched}; ledger "
+              f"h2d {moved['h2d']} B, d2h {moved['d2h']} B [{hw['card']}]")
 
-        # the epoch transition at this width: sweep on the card vs numpy
+        # the slots to the block at this width: sweep on the card vs numpy
         epoch, posts = {}, {}
         for sweep in ("1", "0"):
             os.environ["LIGHTHOUSE_TPU_EPOCH_DEVICE"] = sweep
@@ -2993,17 +3189,21 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
 
         runs = []
         for _ in range(IMPORT_WARM_RUNS):
+            c = chain()
             zero_all_launches()
-            post, r = timed_import(torch, chain(), sb)
+            root, r = timed_import(torch, c, sb)
             r["launches"] = all_launches()
-            check(post.tree_hash_root() == bytes(block.state_root),
-                  "13(b): warm post-state root != the host oracle's")
+            imported(c, root)
             runs.append(r)
-            del post
+            del c
+        c = chain()
         prof = profile_call(torch, hw, "13(b) warm block import",
-                            lambda: chain().import_block(sb), kernel_ms)
+                            lambda: c.process_block(sb, is_timely=True),
+                            kernel_ms)
+        c = chain()
         python_profile(torch, "13(b) warm block import",
-                       lambda: chain().import_block(sb))
+                       lambda: c.process_block(sb, is_timely=True))
+        del c
     finally:
         TRACER.disable()
         os.environ.pop("LIGHTHOUSE_TPU_EPOCH_DEVICE", None)
@@ -3015,6 +3215,8 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
 
     stages = {k: med(lambda r, k=k: r.get(k)) for k in
               ["wall_ms"] + [f"{s}_ms" for s in IMPORT_SPANS]}
+    chain_spans = {k: med(lambda r, k=k: r["chain"].get(k)) for k in
+                   [f"{s}_ms" for s in CHAIN_SPANS]}
     sig = {k: med(lambda r, k=k: r["sig"].get(k)) for k in
            ("device_verify_ms", "join_wait_ms", "overlap_efficiency")}
     phases = {k: med(lambda r, k=k: r["block_phases"].get(k))
@@ -3025,19 +3227,233 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
           f"{[r['launches'] for r in runs]}")
     summary = {
         "validators": n, "slot": slot, "aggregates": n_atts,
+        "fork_choice_votes": fc_votes,
         "batch_sets": runs[-1]["sig"]["sets"],
         "warm_runs": IMPORT_WARM_RUNS, "stages_ms": stages,
+        "chain_spans_ms": chain_spans,
+        "chain_build_s": {"median": statistics.median(build_s),
+                          "max": max(build_s)},
         "sig_dispatch": sig, "block_phases_ms": phases,
         "epoch_sweep_card": epoch["1"], "epoch_sweep_numpy": epoch["0"],
         "launches_per_import": launches,
         "ledger_per_import": {"h2d": med(lambda r: r["ledger"]["h2d"]),
-                              "d2h": med(lambda r: r["ledger"]["d2h"])},
+                              "d2h": med(lambda r: r["ledger"]["d2h"]),
+                              "fork_choice_h2d": med(
+                                  lambda r: r["ledger"]["h2d_by"].get(
+                                      "fork_choice", 0))},
         "profile": {k: prof[k] for k in ("wall_ms", "busy_ms", "kernels")},
         "idle_share": 1 - prof["busy_ms"] / prof["wall_ms"],
         "card": hw["card"]}
-    print("13(b) block import at 2^%d validators (median of %d warm "
-          "imports, each on a fresh copy of the parent): %s" % (
-              n.bit_length() - 1, IMPORT_WARM_RUNS, json.dumps(summary)))
+    print("13(b) block import through BeaconChain at 2^%d validators "
+          "(median of %d warm imports, each on a chain built anew from the "
+          "checkpoint): %s" % (n.bit_length() - 1, IMPORT_WARM_RUNS,
+                               json.dumps(summary)))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: fork choice at 2^20 validators on the card
+# ---------------------------------------------------------------------------
+
+FC_LOG2_VALIDATORS = 20
+FC_SLOTS = 96                        # 3 MAINNET epochs of slots
+FC_NODES = 96                        # a main chain and two forks in them
+ZERO32 = b"\x00" * 32
+FC_ROUNDS = 8
+FC_REVOTES = 1 << 15                 # one slot's committees: 2^20 / 32
+FC_CHAINY_NODES = 64
+FC_CHAINY_MAX_DEPTH = 16             # forced small: the host route runs
+
+
+def fc_root(i: int) -> bytes:
+    return int(i).to_bytes(4, "little") + b"\x5c" * 28
+
+
+def fc_tree(engines, n_slots: int, forks):
+    """A block per slot on a main chain from an anchor at slot 0, and for
+    each ``(at, length)`` of ``forks`` a side chain of ``length`` blocks
+    from the main block at slot ``at``: the same inserts on every engine.
+    Returns (roots by node index, main-chain roots, the fork tips)."""
+    from lighthouse_tpu_torch.fork_choice.proto_array import (
+        EXEC_IRRELEVANT, ZERO_ROOT)
+    roots, main, tips = [], [], []
+
+    def add(root, parent, slot):
+        for e in engines:
+            e.on_block(slot=slot, root=root, parent_root=parent,
+                       state_root=root, justified_epoch=1,
+                       justified_root=fc_root(0), finalized_epoch=1,
+                       finalized_root=fc_root(0),
+                       execution_status=EXEC_IRRELEVANT)
+        roots.append(root)
+
+    add(fc_root(0), ZERO_ROOT, 0)
+    main.append(fc_root(0))
+    side_len = {at: length for at, length in forks}
+    nid = 1
+    for slot in range(1, n_slots):
+        add(fc_root(nid), main[-1], slot)
+        main.append(fc_root(nid))
+        nid += 1
+        if slot in side_len:
+            parent = main[-2]
+            for k in range(side_len[slot]):
+                add(fc_root(nid), parent, slot + k + 1)
+                parent = fc_root(nid)
+                nid += 1
+            tips.append(parent)
+    return roots, main, tips
+
+
+def fc_round(torch, eng, bal, jcp, boost_root, boost_score, slot):
+    """One head round on ``eng``: host clock ending in a device sync."""
+    def go():
+        deltas = eng.compute_deltas(bal)
+        eng.apply_score_changes(deltas, jcp, jcp, boost_root, boost_score,
+                                slot)
+        return eng.find_head(jcp[1], slot)
+    return timed(torch, go)
+
+
+def fc_equal(a, b) -> bool:
+    n = a.cols.n
+    return (n == b.cols.n
+            and np.array_equal(a.cols.weight[:n], b.cols.weight[:n])
+            and np.array_equal(a.cols.best_child[:n], b.cols.best_child[:n])
+            and np.array_equal(a.cols.best_desc[:n], b.cols.best_desc[:n])
+            and np.array_equal(a.votes_store.current, b.votes_store.current)
+            and np.array_equal(a.old_balances, b.old_balances))
+
+
+def phase_fork_choice(torch, hw: dict) -> dict:
+    """14: fork choice at 2^20 validators, the ``torch`` engine on the
+    card against the ``numpy`` engine on the host.  A tree of 96 nodes
+    over 3 epochs of slots with two forks; 8 head rounds with proposer
+    boost, each after 1/32 of the registry re-votes (one slot's
+    committees), the justified balances changing once at an epoch
+    boundary; the weights, best-child and best-descendant columns, votes,
+    balances and head equal exactly after every round.  Then a chain of
+    64 nodes with ``jit_max_depth`` forced to 16: its rounds take the
+    host route (counted), equal to numpy's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
+    from lighthouse_tpu_torch.fork_choice.device_proto_array import \
+        DeviceProtoArrayForkChoice
+
+    nv = 1 << FC_LOG2_VALIDATORS
+    rng = np.random.default_rng(SEED + 14)
+    card = DeviceProtoArrayForkChoice(engine="torch")
+    host = DeviceProtoArrayForkChoice(engine="numpy")
+    roots, main, tips = fc_tree((card, host), FC_NODES - 10,
+                                [(30, 6), (70, 4)])
+    n_nodes = len(roots)
+    check(n_nodes == FC_NODES and len(tips) == 2,
+          f"14: the tree has {n_nodes} nodes, not {FC_NODES}")
+    depth = card.cols.max_depth()
+    jcp = (1, fc_root(0))
+    bal = np.full(nv, 32 * 10 ** 9, dtype=np.uint64)
+    # every validator votes first: 49.2% for fork A's tip, 26.8% for the
+    # main tip, 24% for fork B's tip (B branches off the main chain above
+    # A's fork point); each later round's re-voters go to one tip, whose
+    # block also takes the proposer boost, so the head moves between the
+    # branches (main, A, B, B, main, ...) with margins of 0.9% or more
+    targets = [tips[0], main[-1], tips[1]]
+    first = rng.choice(3, nv, p=[0.492, 0.268, 0.240])
+    for t in range(3):
+        idx = np.flatnonzero(first == t)
+        for e in (card, host):
+            e.process_attestation_batch([(idx, targets[t], 2)])
+    schedule = [None, 0, 2, 2, 1, 1, 0, 0]
+    rows, heads = [], []
+    for r in range(FC_ROUNDS):
+        slot = FC_SLOTS + r
+        if schedule[r] is not None:
+            voters = rng.choice(nv, FC_REVOTES, replace=False)
+            for e in (card, host):
+                e.process_attestation_batch(
+                    [(voters, targets[schedule[r]], 3 + r)])
+        if r == FC_ROUNDS // 2:        # an epoch boundary: balances move
+            moved = rng.choice(nv, nv // 64, replace=False)
+            bal = bal.copy()
+            bal[moved] -= np.uint64(10 ** 9)
+        boost_root = targets[1 if schedule[r] is None else schedule[r]]
+        boost = int(bal.sum()) // 32 * 40 // 100
+        t0 = LEDGER.transfer_totals()["fork_choice"]
+        h_card, ms_card = fc_round(torch, card, bal, jcp, boost_root, boost,
+                                   slot)
+        t1 = LEDGER.transfer_totals()["fork_choice"]
+        h_host, ms_host = fc_round(torch, host, bal, jcp, boost_root, boost,
+                                   slot)
+        check(h_card == h_host and fc_equal(card, host),
+              f"14: round {r}: the torch engine != the numpy engine")
+        heads.append(h_card)
+        rows.append({"round": r, "card_ms": ms_card, "numpy_ms": ms_host,
+                     "h2d": t1[0] - t0[0], "d2h": t1[1] - t0[1]})
+    check(card.host_rounds == 0, "14: a shallow round took the host route")
+    check(len(set(heads)) >= 3,
+          f"14: the head visited {len(set(heads))} branches, not 3")
+    # CUDA launches of one warm round (torch.profiler), equality after it
+    voters = rng.choice(nv, FC_REVOTES, replace=False)
+    for e in (card, host):
+        e.process_attestation_batch([(voters, targets[0], 20)])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        h_card, ms_prof = fc_round(torch, card, bal, jcp, ZERO32, 0,
+                                   FC_SLOTS + FC_ROUNDS)
+    h_host, _ = fc_round(torch, host, bal, jcp, ZERO32, 0,
+                         FC_SLOTS + FC_ROUNDS)
+    check(h_card == h_host and fc_equal(card, host),
+          "14: the profiled round: the torch engine != the numpy engine")
+    devt = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    copies = sum(c for _d, c, k in devt if k.startswith(("Memcpy",
+                                                         "Memset")))
+    launches = sum(c for _d, c, _k in devt) - copies
+    busy = sum(d for d, _c, _k in devt) / 1e3
+
+    # the host route: a chain deeper than a forced-small max depth
+    deep = DeviceProtoArrayForkChoice(engine="torch",
+                                      jit_max_depth=FC_CHAINY_MAX_DEPTH)
+    deep_np = DeviceProtoArrayForkChoice(engine="numpy")
+    _, chain_roots, _ = fc_tree((deep, deep_np), FC_CHAINY_NODES, [])
+    for r in range(4):
+        voters = rng.choice(nv, FC_REVOTES, replace=False)
+        tgt = chain_roots[-1 - 3 * r]
+        for e in (deep, deep_np):
+            e.process_attestation_batch([(voters, tgt, 2 + r)])
+        a, _ = fc_round(torch, deep, bal, jcp, ZERO32, 0, FC_CHAINY_NODES)
+        b, _ = fc_round(torch, deep_np, bal, jcp, ZERO32, 0,
+                        FC_CHAINY_NODES)
+        check(a == b and fc_equal(deep, deep_np),
+              f"14: chainy round {r}: the host route != numpy")
+    check(deep.host_rounds == 4, f"14: {deep.host_rounds} host-route "
+                                 f"rounds, expected 4")
+    warm = rows[1:]
+    summary = {
+        "validators": nv, "nodes": n_nodes, "max_depth": depth,
+        "revotes_per_round": FC_REVOTES, "rounds": FC_ROUNDS,
+        "head_node_per_round": [card.cols.indices[h] for h in heads],
+        "cold_round_ms": {"card": rows[0]["card_ms"],
+                          "numpy": rows[0]["numpy_ms"]},
+        "warm_round_ms_median": {
+            "card": statistics.median(r["card_ms"] for r in warm),
+            "numpy": statistics.median(r["numpy_ms"] for r in warm)},
+        "warm_round_ms": [(round(r["card_ms"], 3), round(r["numpy_ms"], 3))
+                          for r in warm],
+        "cold_round_bytes": {"h2d": rows[0]["h2d"], "d2h": rows[0]["d2h"]},
+        "warm_round_bytes_median": {
+            "h2d": statistics.median(r["h2d"] for r in warm),
+            "d2h": statistics.median(r["d2h"] for r in warm)},
+        "launches_per_round": launches, "copies_per_round": copies,
+        "profiled_round": {"wall_ms": ms_prof, "busy_ms": busy,
+                           "idle_share": 1 - busy / ms_prof},
+        "host_route_rounds": {"chainy": deep.host_rounds,
+                              "bushy": card.host_rounds},
+        "card": hw["card"]}
+    print("14 fork choice at 2^%d validators, torch engine on the card vs "
+          "numpy, equal after every round: %s" % (
+              FC_LOG2_VALIDATORS, json.dumps(summary)))
     return summary
 
 
@@ -3114,6 +3530,7 @@ def main() -> None:
         **{k: t["ms"] for k, t in bk["timing"].items()},
         **{k: t["ms"] for k, t in gk["timing"].items()}})
     del all_keys
+    phase_fork_choice(torch, hw)
     from lighthouse_tpu_torch.common.device_ledger import LEDGER
     print("device ledger: " + json.dumps(LEDGER.snapshot()))
 

@@ -1,15 +1,24 @@
-"""Chain runtime of the port: the staged block-verification pipeline and
-its typed errors (counterpart of ``beacon_node/beacon_chain``).  The
-``BeaconChain`` orchestrator (fork choice, store, op pool, data
-availability) is not ported yet: the stages take any object with the
-attributes they read as their ``chain``."""
+"""Chain runtime of the port: the ``BeaconChain`` orchestrator and its
+staged verification pipelines (counterpart of ``beacon_node/beacon_chain``;
+port of ``lighthouse_tpu/beacon_chain``).  Block production, the
+streaming verification service and light-client updates are not ported
+yet."""
 
+from .chain import BeaconChain, CanonicalHead
 from .block_verification import (
     ExecutedBlock,
     GossipVerifiedBlock,
     SignatureVerifiedBlock,
 )
+from .attestation_verification import (
+    VerifiedAttestation,
+    batch_verify_attestations,
+)
+from .data_availability import DataAvailabilityChecker, KzgNotPorted
 from .errors import (
+    AttestationError,
+    BlobSidecarError,
+    BlobsUnavailable,
     BlockError,
     BlockIsAlreadyKnown,
     FutureSlot,
@@ -21,12 +30,20 @@ from .errors import (
     RepeatProposal,
     StateRootMismatch,
 )
-from .observed import ObservedBlockProducers
+from .observed import (
+    ObservedAggregators,
+    ObservedAttesters,
+    ObservedBlockProducers,
+)
 
 __all__ = [
-    "ExecutedBlock", "GossipVerifiedBlock", "SignatureVerifiedBlock",
-    "BlockError", "BlockIsAlreadyKnown", "FutureSlot", "IncorrectProposer",
-    "InvalidBlock", "InvalidSignatures", "ParentUnknown",
-    "ProposalSignatureInvalid", "RepeatProposal", "StateRootMismatch",
+    "BeaconChain", "CanonicalHead", "GossipVerifiedBlock",
+    "SignatureVerifiedBlock", "ExecutedBlock", "VerifiedAttestation",
+    "batch_verify_attestations", "BlockError", "AttestationError",
+    "BlockIsAlreadyKnown", "FutureSlot", "ParentUnknown",
+    "IncorrectProposer", "InvalidBlock", "ProposalSignatureInvalid",
+    "InvalidSignatures", "StateRootMismatch", "RepeatProposal",
+    "BlobsUnavailable", "BlobSidecarError", "DataAvailabilityChecker",
+    "KzgNotPorted", "ObservedAttesters", "ObservedAggregators",
     "ObservedBlockProducers",
 ]

@@ -132,6 +132,14 @@ WARM_SLOT_BUDGET: Dict[str, Dict[str, int]] = {
     "replay": {"h2d_bytes": 0, "d2h_bytes": 0},
 }
 
+# Transfer budget of one epoch-batched replay window
+# (state_transition/batch_replay.py): the window's signature sets up in
+# one dispatch, verdict flags down.  Checked per window by the replayer;
+# replay runs at catch-up time, not per slot.
+REPLAY_WINDOW_BUDGET: Dict[str, int] = {
+    "h2d_bytes": 256 * MiB, "d2h_bytes": 1 * MiB,
+}
+
 class ResidencyToken:
     """Live-resident-bytes handle for one device-owning object.
 

@@ -50,6 +50,21 @@ KNOBS = {
     "LIGHTHOUSE_TPU_EPOCH_DEVICE": (
         False, "Run the fused epoch rewards/inactivity sweep as torch ops "
                "on the device of the state's columns."),
+    "LIGHTHOUSE_TPU_FORKCHOICE_JIT_MAX_DEPTH": (
+        512, "Tree depth past which the torch engine's per-level loop "
+             "yields to the host walk.", 1),
+    "LIGHTHOUSE_TPU_BATCH_REPLAY": (
+        "auto", "Epoch-batched replay for recovery: one window-wide "
+                "signature batch, known state roots, one boundary root "
+                "(auto: batch windows of >= 4 blocks; 0 = serial "
+                "BlockReplayer oracle)."),
+    "LIGHTHOUSE_TPU_STORE_SYNC": (
+        "normal", "SQLite PRAGMA synchronous level for the on-disk store."),
+}
+
+# Choice knobs: name → the accepted lower-cased values.
+_CHOICES = {
+    "LIGHTHOUSE_TPU_STORE_SYNC": ("off", "normal", "full", "extra"),
 }
 
 
@@ -68,6 +83,36 @@ def knob_bool(name: str) -> bool:
         return False
     raise KnobError(f"{name}={raw!r}: expected a boolean — one of "
                     f"{_TRUE + _FALSE} (or unset for the default)")
+
+
+def knob_tribool(name: str):
+    """Three-state knob: None when unset or ``auto`` (the caller
+    decides), else the forced boolean."""
+    raw = _raw(name)
+    if raw is None:
+        return None
+    v = raw.strip().lower()
+    if v == "auto":
+        return None
+    if v in _TRUE:
+        return True
+    if v in _FALSE:
+        return False
+    raise KnobError(f"{name}={raw!r}: expected 'auto' or a boolean — one "
+                    f"of {_TRUE + _FALSE}")
+
+
+def knob_choice(name: str, default: str | None = None) -> str:
+    """One of the knob's accepted values (an explicit ``default`` is
+    checked against them too)."""
+    raw = _raw(name)
+    if raw is None:
+        raw = str(KNOBS[name][0] if default is None else default)
+    v = raw.strip().lower()
+    if v not in _CHOICES[name]:
+        raise KnobError(f"{name}={raw!r}: expected one of "
+                        f"{sorted(_CHOICES[name])}")
+    return v
 
 
 def _raw(name: str):

@@ -161,6 +161,25 @@ class Tracer:
                     inherited if slot is None else int(slot),
                     parent_id, attrs)
 
+    def instant(self, name: str, cat: str = "",
+                slot: Optional[int] = None, **attrs) -> None:
+        """Zero-duration marker (health transitions)."""
+        if not self.enabled:
+            return
+        stack = self._stack()
+        top = stack[-1] if stack else None
+        self._record(
+            (top.slot if top is not None else self._ambient_slot)
+            if slot is None else int(slot),
+            {"id": next(self._ids),
+             "parent": top.span_id if top is not None else 0,
+             "name": name, "cat": cat,
+             "ts_us": round(time.perf_counter() * 1e6, 1),
+             "dur_us": 0.0, "inst": True,
+             "tid": threading.get_ident(),
+             "thread": threading.current_thread().name,
+             "attrs": attrs})
+
     def ctx(self) -> SpanContext:
         stack = self._stack()
         if stack:
@@ -182,6 +201,28 @@ class Tracer:
         with self._lock:
             spans = list(self._slots.get(int(slot), ()))
         return sorted(spans, key=lambda s: s["ts_us"])
+
+    def slot_stats(self) -> List[dict]:
+        """Per-slot per-category duration aggregates of the recorded
+        spans: ``[{"slot", "stats": {cat: {"count", "total_ms",
+        "max_ms"}}}]`` (the SLO engine's worst-offender attribution)."""
+        with self._lock:
+            buckets = [(s, list(v)) for s, v in self._slots.items()]
+        out = []
+        for slot, spans in sorted(buckets):
+            stats: dict = {}
+            for rec in spans:
+                if not rec["cat"] or rec.get("inst"):
+                    continue
+                st = stats.setdefault(rec["cat"], [0, 0.0, 0.0])
+                st[0] += 1
+                st[1] += rec["dur_us"]
+                st[2] = max(st[2], rec["dur_us"])
+            out.append({"slot": slot, "stats": {
+                cat: {"count": st[0], "total_ms": round(st[1] / 1e3, 3),
+                      "max_ms": round(st[2] / 1e3, 3)}
+                for cat, st in stats.items()}})
+        return out
 
     # -- stage-dict adapter --------------------------------------------------
 
@@ -262,11 +303,23 @@ def _src_block_sigs() -> dict:
     return LAST_SIG_DISPATCH
 
 
+def _src_replay() -> dict:
+    from ..state_transition.batch_replay import LAST_REPLAY_TIMINGS
+    return LAST_REPLAY_TIMINGS
+
+
 _STAGE_SOURCES: Dict[str, Callable[[], dict]] = {
     "block": _src_block,
     "epoch": _src_epoch,
     "block_sigs": _src_block_sigs,
+    "replay": _src_replay,
 }
+
+
+def register_stage_source(name: str, getter: Callable[[], dict]) -> None:
+    """Add a named stage dict to the adapter (the store registers its
+    own)."""
+    _STAGE_SOURCES[name] = getter
 
 
 TRACER = Tracer()

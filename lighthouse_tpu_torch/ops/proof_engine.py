@@ -271,7 +271,8 @@ class ProofServer:
     union — ``coalesced`` counts request-gindices that were already
     pending.  Field-root trees are cached per state root (small LRU;
     one ~1 KB host→device materialization per new head state).
-    ``chain`` is optional (the port has no chain yet).
+    ``chain`` is optional (a ``BeaconChain`` serves its own proofs
+    through ``chain.proof_server``).
     """
 
     def __init__(self, chain=None, window_ms: Optional[float] = None,

@@ -3,11 +3,11 @@ JAX package's stages.
 
 A real-signature MINIMAL Capella chain (64 validators, about 10 blocks) is
 built by the port's ``StateHarness`` under the port's python BLS backend.
-Each block is imported through ``GossipVerifiedBlock`` →
-``SignatureVerifiedBlock`` → ``ExecutedBlock`` of the port on a small
-chain stand-in defined here (``chain.py`` is not ported yet); every
-post-state root must equal the block's ``state_root`` (the stage checks
-it) and the final state must equal the harness's byte for byte.
+Each block is imported by the port's ``BeaconChain.process_block``
+(``GossipVerifiedBlock`` → ``SignatureVerifiedBlock`` → ``ExecutedBlock``,
+then fork choice and the store); every post-state root must equal the
+block's ``state_root`` (the stage checks it) and the final state must
+equal the harness's byte for byte.
 
 - The overlapped dispatch and the synchronous oracle
   (``LIGHTHOUSE_TPU_OVERLAP_BLOCK_SIGS=0``) give the same states and
@@ -15,7 +15,9 @@ it) and the final state must equal the harness's byte for byte.
 - Each tamper class (a wrong attestation signature, a wrong
   ``state_root``, a wrong proposal signature) raises the same error class
   from the port's stages as from the JAX package's stages on the same
-  bytes (the JAX side gets the parent state and the block by SSZ bytes).
+  bytes (the JAX side gets the parent state and the block by SSZ bytes,
+  and starts its ``BeaconChain`` from that parent with
+  ``from_checkpoint``).
 - An exception on the signature worker re-raises at ``join()`` and at the
   import, and no host backend is asked for a verdict in its place.
 
@@ -67,47 +69,31 @@ def _ser(obj) -> bytes:
     return type(obj).serialize(obj)
 
 
-class StandInChain:
-    """The slice of ``BeaconChain`` the three stages read, over one
-    package (``lighthouse_tpu`` or ``lighthouse_tpu_torch``): block roots
-    map to post-states, the clock is the newest block's slot."""
+def _chain_of(pkg: str, anchor, preset, spec, T, anchor_block=None):
+    """A ``BeaconChain`` of ``pkg`` over an in-memory store: from genesis
+    (``anchor`` a genesis state), or from ``anchor_block`` and its
+    post-state ``anchor`` (``from_checkpoint``)."""
+    bc = importlib.import_module(f"{pkg}.beacon_chain")
+    store = importlib.import_module(f"{pkg}.store")
+    db = store.HotColdDB.memory(preset, spec, T)
+    if anchor_block is not None:
+        return bc.BeaconChain.from_checkpoint(
+            store=db, anchor_state=anchor, anchor_block=anchor_block,
+            preset=preset, spec=spec, T=T)
+    hdr = anchor.latest_block_header.copy()
+    hdr.state_root = anchor.tree_hash_root()
+    return bc.BeaconChain(store=db, genesis_state=anchor,
+                          genesis_block_root=hdr.tree_hash_root(),
+                          preset=preset, spec=spec, T=T)
 
-    def __init__(self, pkg: str, anchor, preset, spec, T,
-                 anchor_root: bytes = None):
-        sigs = importlib.import_module(
-            f"{pkg}.state_transition.signature_sets")
-        observed = importlib.import_module(f"{pkg}.beacon_chain.observed")
-        per_slot = importlib.import_module(f"{pkg}.state_transition.per_slot")
-        self.bv = importlib.import_module(
-            f"{pkg}.beacon_chain.block_verification")
-        self.preset, self.spec, self.T = preset, spec, T
-        self.pubkey_cache = sigs.PubkeyCache()
-        self.payload_verifier = None
-        self.observed_block_producers = observed.ObservedBlockProducers()
-        self._advanced_states = {}
-        self.fork_choice = self
-        self.slot = 0
-        if anchor_root is None:     # genesis: its block root after slot 0
-            adv = per_slot.process_slots(anchor.copy(), 1, preset, spec, T)
-            anchor_root = bytes(adv.block_roots[0])
-        self._states = {bytes(anchor_root): anchor}
 
-    def current_slot(self) -> int:
-        return self.slot
-
-    def contains_block(self, root: bytes) -> bool:
-        return bytes(root) in self._states
-
-    def state_at_block_root(self, root: bytes):
-        return self._states[bytes(root)].copy()
-
-    def import_block(self, signed_block):
-        self.slot = max(self.slot, int(signed_block.message.slot))
-        g = self.bv.GossipVerifiedBlock.new(self, signed_block)
-        sv = self.bv.SignatureVerifiedBlock.from_gossip_verified(self, g)
-        ex = self.bv.ExecutedBlock.from_signature_verified(self, sv)
-        self._states[ex.block_root] = ex.post_state
-        return ex.post_state
+def import_block(chain, signed_block):
+    """Tick the chain to the block's slot, import the block, and return
+    its post-state."""
+    chain.per_slot_task(int(signed_block.message.slot))
+    root = chain.process_block(signed_block)
+    assert chain.head.root == root
+    return chain.state_at_block_root(root)
 
 
 @pytest.fixture(scope="module")
@@ -130,15 +116,15 @@ def real_chain(python_backends):
     return genesis, blocks, h
 
 
-def _port_chain(genesis, h) -> StandInChain:
-    return StandInChain("lighthouse_tpu_torch", genesis, h.preset, h.spec,
-                        h.T)
+def _port_chain(genesis, h):
+    return _chain_of("lighthouse_tpu_torch", genesis.copy(), h.preset,
+                     h.spec, h.T)
 
 
 def _import_all(chain, blocks) -> list:
     out = []
     for sb in blocks:
-        st = chain.import_block(sb)
+        st = import_block(chain, sb)
         out.append((_ser(st), dict(SD.LAST_SIG_DISPATCH)))
     return out
 
@@ -170,7 +156,7 @@ def test_traced_import_records_the_stages(real_chain):
     TRACER.set_slot(slot)
     TRACER.enable()
     try:
-        _port_chain(genesis, h).import_block(blocks[0])
+        import_block(_port_chain(genesis, h), blocks[0])
     finally:
         TRACER.disable()
     spans = TRACER.slot_spans(slot)
@@ -244,7 +230,7 @@ def test_tampered_block_raises_reference_error_class(real_chain, kind):
     k = 7
     port = _port_chain(genesis, h)
     for sb in blocks[:k]:
-        parent = port.import_block(sb)
+        parent = import_block(port, sb)
     assert len(blocks[k].message.body.attestations) > 0
     data = _tamper(kind, h, blocks[k], parent)
 
@@ -253,16 +239,17 @@ def test_tampered_block_raises_reference_error_class(real_chain, kind):
     jspec.shard_committee_period = 0
     fork = h.fork_at(int(blocks[k].message.slot)).value
     jparent = JT.state_cls(JForkName(fork)).deserialize(_ser(parent))
-    ref = StandInChain("lighthouse_tpu", jparent, JMINIMAL, jspec, JT,
-                       anchor_root=bytes(blocks[k].message.parent_root))
-    ref.slot = port.slot
+    janchor = JT.signed_block_cls(JForkName(fork)).deserialize(
+        _ser(blocks[k - 1]))
+    ref = _chain_of("lighthouse_tpu", jparent, JMINIMAL, jspec, JT,
+                    anchor_block=janchor)
     jblock = JT.signed_block_cls(JForkName(fork)).deserialize(data)
 
     errs = []
     for chain, block in ((port, signed_block_from_ssz(data, "minimal", fork)),
                          (ref, jblock)):
         with pytest.raises(Exception) as ei:
-            chain.import_block(block)
+            import_block(chain, block)
         errs.append(type(ei.value))
     assert [e.__name__ for e in errs] == [_TAMPERS[kind]] * 2
     assert errs[0].__module__.startswith("lighthouse_tpu_torch.")
@@ -301,7 +288,7 @@ def test_verifier_exception_reraises_at_join_without_host_verdict(
     try:
         chain = _port_chain(genesis, h)
         with pytest.raises(RuntimeError, match="device lost"):
-            chain.import_block(blocks[0])
+            import_block(chain, blocks[0])
         assert SD.LAST_SIG_DISPATCH["path"] == "error"
     finally:
         tbls.set_backend("python")
@@ -333,7 +320,7 @@ def test_harness_votes_its_deposit_in(python_backends):
         assert int(h.state.eth1_data.deposit_count) == 65
         chain = _port_chain(genesis, h)
         for sb in blocks:
-            post = chain.import_block(sb)
+            post = import_block(chain, sb)
         assert _ser(post) == _ser(h.state)
     finally:
         tbls._active = prev
@@ -350,11 +337,11 @@ def test_device_backend_imports_a_block(real_chain, monkeypatch):
     monkeypatch.setenv("LIGHTHOUSE_TPU_HOST_FASTPATH_MAX", "1")
     tbls.set_backend("tpu")
     try:
-        st = _port_chain(genesis, h).import_block(blocks[0])
+        st = import_block(_port_chain(genesis, h), blocks[0])
     finally:
         tbls.set_backend("python")
     stats = dict(SD.LAST_SIG_DISPATCH)
     assert stats["path"] == "device" and stats["overlapped"] is True
     assert stats["sets"] >= 4
-    want = _port_chain(genesis, h).import_block(blocks[0])
+    want = import_block(_port_chain(genesis, h), blocks[0])
     assert _ser(st) == _ser(want)

@@ -66,6 +66,8 @@ _DEVICE_CALLS = [
     "tpu_backend.TpuBackend().verify_signature_sets([])",
     "compile_cache.warmup()",
     "pipeline.ChunkStager([np.zeros(8, np.uint32)])",
+    "device_proto_array.DeviceProtoArrayForkChoice().compute_deltas("
+    "np.zeros(4, np.uint64))",
 ]
 
 
@@ -81,6 +83,7 @@ def device_call_outcomes() -> dict:
         "from lighthouse_tpu_torch.crypto import tpu_backend\n"
         "from lighthouse_tpu_torch.common import compile_cache\n"
         "from lighthouse_tpu_torch.parallel import pipeline\n"
+        "from lighthouse_tpu_torch.fork_choice import device_proto_array\n"
         "assert device.default_device().type == 'cuda'\n"
         f"for call in {_DEVICE_CALLS!r}:\n"
         "    try:\n"
@@ -99,7 +102,8 @@ def test_default_device_is_cuda_and_raises_without_gpu(call,
 
 
 # The modules the native library, device ledger, chunk stager and proof
-# engine slice added, then those of the block-import slice.
+# engine slice added, then those of the block-import slice, then those of
+# the beacon-chain slice.
 _NEW_MODULES = [
     "lighthouse_tpu_torch.crypto.native",
     "lighthouse_tpu_torch.common.device_ledger",
@@ -129,6 +133,28 @@ _NEW_MODULES = [
     "lighthouse_tpu_torch.beacon_chain.block_verification",
     "lighthouse_tpu_torch.testing",
     "lighthouse_tpu_torch.testing.harness",
+    "lighthouse_tpu_torch.fork_choice",
+    "lighthouse_tpu_torch.fork_choice.proto_array",
+    "lighthouse_tpu_torch.fork_choice.columnar",
+    "lighthouse_tpu_torch.fork_choice.device_proto_array",
+    "lighthouse_tpu_torch.fork_choice.fork_choice",
+    "lighthouse_tpu_torch.fork_choice.persistence",
+    "lighthouse_tpu_torch.store",
+    "lighthouse_tpu_torch.store.kv",
+    "lighthouse_tpu_torch.store.migrations",
+    "lighthouse_tpu_torch.store.hot_cold",
+    "lighthouse_tpu_torch.store.recovery",
+    "lighthouse_tpu_torch.state_transition.block_replayer",
+    "lighthouse_tpu_torch.state_transition.batch_replay",
+    "lighthouse_tpu_torch.op_pool",
+    "lighthouse_tpu_torch.op_pool.max_cover",
+    "lighthouse_tpu_torch.op_pool.persistence",
+    "lighthouse_tpu_torch.beacon_chain.events",
+    "lighthouse_tpu_torch.beacon_chain.attester_cache",
+    "lighthouse_tpu_torch.beacon_chain.attestation_verification",
+    "lighthouse_tpu_torch.beacon_chain.data_availability",
+    "lighthouse_tpu_torch.beacon_chain.chain",
+    "lighthouse_tpu_torch.common.slo",
 ]
 
 
