@@ -156,8 +156,43 @@ Phases, each of which fails the run with a non-zero exit:
     ms per round (host clock ending in a sync), bytes up and down per
     round (ledger), CUDA launches of one round (torch.profiler).  Then a
     64-node chain with ``jit_max_depth`` forced to 16: its 4 rounds take
-    the host route, counted, and equal numpy's.  Then the device ledger's
-    snapshot (with the caching allocator's memory figures).
+    the host route, counted, and equal numpy's.
+15. Block production.  (a) One ``ValidatorClient`` with the 64 interop
+    keys drives ``InProcessBeaconNode`` over a port chain on the card (a
+    device-resident MINIMAL Capella genesis, an in-memory store, the
+    ``tpu`` BLS backend with every batch on the card) over slots 1-10:
+    each slot it proposes (randao reveal and block signed on the host
+    under slashing protection; the chain produces the block, its state
+    root from a scratch ``process_block`` on the device-resident state;
+    ``publish_block`` imports it), attests and sends sync messages.  A
+    CPU chain fed the same signed blocks, attestations and sync messages
+    produces its own block at each slot: its unsigned bytes, the head and
+    the op pool's bytes equal the card's; every kernel of the path
+    launches; the slashing database refuses a second proposal at a
+    proposed slot.  (b) ``produce_block`` at 2^20 validators on chains
+    booted from 13(b)'s checkpoint, with 13(b)'s 128 aggregates and 16
+    subset aggregates of each in the op pool (2,176 candidates, so the
+    pack takes the columnar path and the torch rounds on the card): the
+    adopted route (after ``_advance_and_prime``) and the serial route,
+    each timed with its split (state copy, slot advance, CSR build,
+    coverage, push, rounds, scratch block, state root), launches and
+    ledger bytes; the blocks are byte-equal, the selection equals CELF's
+    on the same CSR (the rounds and CELF then timed on that CSR, the
+    median of 5 warm calls each), the state root equals the host
+    oracle's, and the block, signed with the proposer's derived key,
+    imports on the card and becomes the head.
+    (c) BASELINE row 5: ``bench_pack_attestations(100_000)`` at 2^20
+    validators, then its pool's ``get_attestations`` on the torch rounds
+    and with the host CELF ``greedy_pack`` in the rounds' place, in
+    turns, the median of 5 warm calls each, the same packed list; the
+    rounds alone
+    beside their bound, the CUDA launches of one pack (torch.profiler)
+    and its bytes (ledger).  Then the device ledger's snapshot (with the
+    caching allocator's memory figures).
+
+Device busy times and CUDA launch counts come from torch.profiler's
+device-side events only (kernels, copies, memsets): the host op that
+launched a kernel reports the same device time.
 
 The line before the last is one JSON object with each kernel's launches,
 error, time, plain-version time and bound (for every BLS kernel also its
@@ -169,7 +204,8 @@ Miller+fold, hash-to-G2 and sigma take ``ms`` at the shared path's
 shapes and add ``ms_general`` and its bounds at the general path's,
 prepare adds ``ms_block`` and its chain bounds on the block batch's two
 items; every row adds ``launches_import``, its launches in one warm
-phase-13(b) import); the last line is
+phase-13(b) import, and ``launches_production``, its launches in phase
+15(b)'s adopted production); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing a result.
 """
@@ -849,6 +885,18 @@ def stage_leaves(torch, hw: dict, mk, rng) -> dict:
 # Phase 4: where the time goes (after the launch counts are read)
 # ---------------------------------------------------------------------------
 
+def device_events(prof) -> list:
+    """(self device µs, count, name) of every device-side event of a
+    torch.profiler run: kernels, copies and memsets.  The host ops that
+    launched them report the same self device time, so summing every
+    event with device time would count each torch op's kernels twice."""
+    from torch.autograd import DeviceType
+    return sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+
+
 def profile_roots(torch, hw: dict, cases) -> None:
     """For each (label, prepare, root) case: wall time, the device's busy
     time from torch.profiler (sum of kernel and copy self time) and its
@@ -864,13 +912,10 @@ def profile_roots(torch, hw: dict, cases) -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall_ms = timed(torch, fn)
-        events = prof.key_averages()
-        dev = sorted(((e.self_device_time_total, e.count, e.key)
-                      for e in events if e.self_device_time_total > 0),
-                     reverse=True)
+        dev = device_events(prof)
         busy_ms = sum(d for d, _c, _k in dev) / 1e3
         host = sorted(((e.self_cpu_time_total, e.count, e.key)
-                       for e in events), reverse=True)[:6]
+                       for e in prof.key_averages()), reverse=True)[:6]
         print(f"profile {label}: wall {wall_ms:.2f} ms (under the "
               f"profiler), device busy {busy_ms:.3f} ms, idle share "
               f"{1 - busy_ms / wall_ms:.3f} [{hw['card']}]")
@@ -1939,9 +1984,7 @@ def profile_call(torch, hw: dict, label: str, fn, kernel_ms=None) -> dict:
         _, wall = timed(torch, fn)
     launched = {k: v - before[k] for k, v in {**HK.LAUNCHES,
                                               **PK.LAUNCHES}.items()}
-    devt = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
+    devt = device_events(prof)
     traced_busy = sum(d for d, _c, _k in devt) / 1e3
     copies = sum(c for _d, c, k in devt if k.startswith(("Memcpy", "Memset")))
     traced = {}
@@ -2923,7 +2966,8 @@ def build_import_block(T, spec, preset, bls, adv, sync, rng):
     committee), a sync aggregate of ~460 of 512, the randao reveal, the
     execution payload with the expected withdrawals; the state root and
     the proposal signature are filled in by the caller.  Returns the
-    block, its proposer, the sync participants and every signer."""
+    block, its proposer, the sync participants, every signer and each
+    aggregate's committee."""
     import hashlib as _hl
 
     from lighthouse_tpu_torch.crypto.fields import R
@@ -2945,7 +2989,7 @@ def build_import_block(T, spec, preset, bls, adv, sync, rng):
 
     slot, slots = int(adv.slot), preset.SLOTS_PER_EPOCH
     epoch = slot // slots
-    atts, signers = [], set()
+    atts, signers, committees = [], set(), []
     for s in (slot - 2, slot - 1):
         e = s // slots
         source = (adv.current_justified_checkpoint
@@ -2963,6 +3007,7 @@ def build_import_block(T, spec, preset, bls, adv, sync, rng):
                 target=target)
             bits = rng.random(len(committee)) < PARTICIPATION
             signers.update(int(v) for v in committee[bits])
+            committees.append(committee)
             atts.append(T.Attestation(
                 aggregation_bits=bits, data=data,
                 signature=signed(committee[bits],
@@ -2999,7 +3044,7 @@ def build_import_block(T, spec, preset, bls, adv, sync, rng):
         slot=slot, proposer_index=proposer,
         parent_root=adv.latest_block_header.tree_hash_root(),
         state_root=b"\x00" * 32, body=body)
-    return block, proposer, int(sync_bits.sum()), signers
+    return block, proposer, int(sync_bits.sum()), signers, committees
 
 
 def python_profile(torch, label: str, fn, top: int = 12) -> None:
@@ -3065,7 +3110,7 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
     try:
         adv = process_slots(parent.copy(), slot, preset, spec, T)
         anchor.message.state_root = bytes(adv.latest_block_header.state_root)
-        block, proposer, n_sync, signers = build_import_block(
+        block, proposer, n_sync, signers, committees = build_import_block(
             T, spec, preset, bls, adv, sync, rng)
         scratch = adv.copy()
         process_block(scratch, T.signed_block_cls(ForkName.CAPELLA)(
@@ -3090,7 +3135,7 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
     check(want_jcp == (IMPORT_EPOCH, anchor_root),
           f"13(b): the block's justified checkpoint {want_jcp} is not the "
           f"anchor's epoch and root")
-    del adv, scratch
+    del scratch
     t_block = time.perf_counter() - t0
     # a running node's pubkey cache is warm: fill it from the derived keys
     cache = PubkeyCache()
@@ -3248,7 +3293,13 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
           "(median of %d warm imports, each on a chain built anew from the "
           "checkpoint): %s" % (n.bit_length() - 1, IMPORT_WARM_RUNS,
                                json.dumps(summary)))
-    return summary
+    # what phase 15(b) produces on: the checkpoint, the block (its real
+    # aggregates and randao reveal), their committees, the warm pubkey
+    # cache and the host oracle's parent advanced to the block's slot
+    ctx = {"parent": parent, "anchor": anchor, "block": sb,
+           "committees": committees, "pubkey_cache": cache, "adv": adv,
+           "preset": preset, "spec": spec, "T": T}
+    return summary, ctx
 
 
 # ---------------------------------------------------------------------------
@@ -3405,8 +3456,7 @@ def phase_fork_choice(torch, hw: dict) -> dict:
                          FC_SLOTS + FC_ROUNDS)
     check(h_card == h_host and fc_equal(card, host),
           "14: the profiled round: the torch engine != the numpy engine")
-    devt = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    devt = device_events(prof)
     copies = sum(c for _d, c, k in devt if k.startswith(("Memcpy",
                                                          "Memset")))
     launches = sum(c for _d, c, _k in devt) - copies
@@ -3457,6 +3507,513 @@ def phase_fork_choice(torch, hw: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: block production on the card
+# ---------------------------------------------------------------------------
+
+PRODUCE_SLOTS = 10                   # 15(a): MINIMAL slots 1-10, across
+#                                      the epoch boundary at slot 8
+PRODUCE_PATH_KERNELS = ("hash64", "hash_g2", "prepare", "sigma",
+                        "sigma_combine", "miller_fold", "finalize")
+PACK_SUBSETS = 16                    # 15(b): subset aggregates a real
+#                                      one: 128 × 17 = 2176 candidates,
+#                                      past the 2048 columnar threshold
+PACK_BENCH_AGGREGATES = 100_000      # 15(c): BASELINE row 5
+PACK_WARM_RUNS = 5
+PRODUCE_SPANS = ("block_production", "produce_components",
+                 "produce_scratch_block", "produce_state_root")
+
+
+def ssz_copy(obj):
+    return type(obj).deserialize(type(obj).serialize(obj))
+
+
+def cpu_reference_production(genesis, records, preset, spec, T) -> list:
+    """15(a)'s reference: a second port chain on the CPU (the port's
+    device set to cpu, the fake BLS backend: the card verified the
+    signatures) from genesis by its SSZ bytes.  At each slot it produces
+    its own block with the card's randao reveal, then imports the card's
+    signed block and submits the card's attestations and sync messages.
+    Returns, per slot, (its unsigned block's bytes, its head root, its op
+    pool's bytes)."""
+    from lighthouse_tpu_torch import device
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.op_pool.persistence import encode_op_pool
+    from lighthouse_tpu_torch.types import ForkName
+    from lighthouse_tpu_torch.validator_client import InProcessBeaconNode
+    prev = (device.default_device(), bls._active)
+    device.set_default_device("cpu")
+    bls.set_backend("fake")
+    try:
+        state = T.state_cls(ForkName.CAPELLA).deserialize(
+            type(genesis).serialize(genesis))
+        chain = genesis_chain(state, preset, spec, T)
+        node = InProcessBeaconNode(chain)
+        out = []
+        for slot in sorted(records):
+            rec = records[slot]
+            chain.per_slot_task(slot)
+            block = node.produce_block(slot, bytes(
+                rec["signed"].message.body.randao_reveal))
+            node.publish_block(ssz_copy(rec["signed"]))
+            res = chain.process_attestation_batch(
+                [ssz_copy(a) for a in rec.get("atts", [])])
+            check(all(v is not None for v, _ in res),
+                  f"15(a): the CPU chain refused an attestation at slot "
+                  f"{slot}")
+            if "sync" in rec:
+                node.submit_sync_messages(*rec["sync"])
+            out.append((type(block).serialize(block), chain.head.root,
+                        encode_op_pool(chain.op_pool, T)))
+        return out
+    finally:
+        device.set_default_device(prev[0])
+        bls._active = prev[1]
+
+
+def phase_produce_minimal(torch, hw: dict) -> dict:
+    """15(a): one ``ValidatorClient`` with the 64 interop keys drives
+    ``InProcessBeaconNode`` over a port chain on the card (a
+    device-resident MINIMAL Capella genesis, an in-memory store, the
+    default ``tpu`` BLS backend with every batch on the card) from genesis
+    over slots 1-10: each slot it proposes (randao and block signed on
+    the host under slashing protection, the block produced by the chain
+    and imported by ``publish_block``), attests and sends sync messages.
+    A CPU chain fed the same signed blocks, attestations and sync
+    messages produces its own block at each slot: its unsigned bytes, the
+    head and the op pool's bytes must equal the card's.  Every kernel of
+    the path launches; the slashing database then refuses a second
+    proposal at a proposed slot."""
+    from lighthouse_tpu_torch.common.logging import test_logger
+    from lighthouse_tpu_torch.op_pool.persistence import encode_op_pool
+    from lighthouse_tpu_torch.state_transition import interop_secret_key
+    from lighthouse_tpu_torch.testing import StateHarness
+    from lighthouse_tpu_torch.types.device_state import (is_materialized,
+                                                         materialize_state)
+    from lighthouse_tpu_torch.validator_client import (
+        InProcessBeaconNode, SlashingProtectionError, ValidatorClient,
+        ValidatorStore)
+
+    class RecordingNode(InProcessBeaconNode):
+        """The in-process node, keeping what the client sends it; an
+        attestation the chain refuses fails the phase."""
+
+        def __init__(self, chain):
+            super().__init__(chain)
+            self.records = {}
+
+        def _rec(self, slot: int) -> dict:
+            return self.records.setdefault(int(slot), {})
+
+        def produce_block(self, slot, randao_reveal, *args, **kw):
+            block = super().produce_block(slot, randao_reveal, *args, **kw)
+            self._rec(slot)["unsigned"] = type(block).serialize(block)
+            return block
+
+        def publish_block(self, signed_block):
+            self._rec(signed_block.message.slot)["signed"] = signed_block
+            return super().publish_block(signed_block)
+
+        def submit_attestations(self, atts):
+            if not atts:
+                return
+            self._rec(atts[0].data.slot)["atts"] = list(atts)
+            res = self.chain.process_attestation_batch(atts)
+            check(all(v is not None for v, _ in res),
+                  f"15(a): the card's chain refused an attestation: "
+                  f"{[repr(e) for _, e in res if e is not None][:3]}")
+
+        def submit_sync_messages(self, slot, block_root, items):
+            self._rec(slot)["sync"] = (slot, block_root, list(items))
+            super().submit_sync_messages(slot, block_root, items)
+
+    t0 = time.perf_counter()
+    h = StateHarness(IMPORT_SMALL_VALIDATORS)
+    genesis = h.state.copy()
+    setup_s = time.perf_counter() - t0
+    os.environ["LIGHTHOUSE_TPU_HOST_FASTPATH_MAX"] = "0"
+    try:
+        anchor = genesis.copy()
+        check(materialize_state(anchor), "15(a): materialize refused")
+        chain = genesis_chain(anchor, h.preset, h.spec, h.T)
+        keys = ValidatorStore()
+        for v in range(IMPORT_SMALL_VALIDATORS):
+            keys.add_validator(interop_secret_key(v), index=v)
+        node = RecordingNode(chain)
+        client = ValidatorClient(keys, [node], h.preset, log=test_logger())
+        zero_all_launches()
+        t1 = time.perf_counter()
+        slots = []
+        for slot in range(1, PRODUCE_SLOTS + 1):
+            chain.per_slot_task(slot)
+            client.on_slot(slot)
+            check(chain.head.slot == slot and is_materialized(
+                chain.head.state), f"15(a): no device-resident head at "
+                                   f"slot {slot}")
+            slots.append((node.records[slot]["unsigned"], chain.head.root,
+                          encode_op_pool(chain.op_pool, h.T)))
+        card_ms = (time.perf_counter() - t1) * 1e3
+        launched = all_launches()
+    finally:
+        os.environ.pop("LIGHTHOUSE_TPU_HOST_FASTPATH_MAX", None)
+    missing = [k for k in PRODUCE_PATH_KERNELS if launched[k] == 0]
+    check(not missing, f"15(a): kernels of the path never launched: "
+                       f"{missing} ({launched})")
+    duty = client.duties.proposer_at(PRODUCE_SLOTS)
+    pk = next(p for p, v in keys.index_by_pubkey.items()
+              if v == duty.validator_index)
+    try:
+        keys.slashing_db.check_and_insert_block_proposal(
+            pk, PRODUCE_SLOTS, b"\xff" * 32)
+        fail("15(a): the slashing database signed a second proposal at a "
+             "proposed slot")
+    except SlashingProtectionError:
+        pass
+    t1 = time.perf_counter()
+    want = cpu_reference_production(genesis, node.records, h.preset,
+                                    h.spec, h.T)
+    cpu_s = time.perf_counter() - t1
+    for slot, (got, ref) in enumerate(zip(slots, want), start=1):
+        check(got[0] == ref[0], f"15(a): the card's unsigned block at slot "
+                                f"{slot} != the CPU chain's")
+        check(got[1] == ref[1], f"15(a): the head at slot {slot} != the CPU "
+                                f"chain's")
+        check(got[2] == ref[2], f"15(a): the op pool at slot {slot} != the "
+                                f"CPU chain's")
+    blocks = [node.records[s]["signed"].message for s in node.records]
+    n_atts = sum(len(b.body.attestations) for b in blocks)
+    n_sync = sum(int(np.sum(b.body.sync_aggregate.sync_committee_bits))
+                 for b in blocks)
+    out = {"slots": PRODUCE_SLOTS, "card_ms": card_ms,
+           "ms_per_slot": card_ms / PRODUCE_SLOTS,
+           "packed_attestations": n_atts, "sync_bits": n_sync,
+           "launches": launched}
+    print(f"15(a) ValidatorClient over a MINIMAL chain at "
+          f"{IMPORT_SMALL_VALIDATORS} validators on the card, slots 1-"
+          f"{PRODUCE_SLOTS}: {card_ms:.0f} ms ({card_ms / PRODUCE_SLOTS:.0f} "
+          f"ms a slot: proposal, publication, attestations, sync messages; "
+          f"{n_atts} attestations packed, {n_sync} sync bits); every "
+          f"unsigned block, head and op pool equal to the CPU chain's "
+          f"({cpu_s:.1f} s); a second proposal at slot {PRODUCE_SLOTS} "
+          f"refused; launches {launched} (genesis {setup_s:.1f} s) "
+          f"[{hw['card']}]")
+    return out
+
+
+def subset_aggregates(T, atts, rng) -> list:
+    """``PACK_SUBSETS`` aggregates of each of ``atts``' AttestationData
+    whose bits are strict subsets, at most half, of the real aggregate's
+    and hold its first attester (so no two are disjoint and none merge in
+    the pool); they carry the real signature, and since the real
+    aggregate covers each of them and sits before them in the pool,
+    greedy max-cover never selects one."""
+    out = []
+    for att in atts:
+        on = np.flatnonzero(np.asarray(att.aggregation_bits, bool))
+        for _ in range(PACK_SUBSETS):
+            k = int(rng.integers(1, on.size // 2 + 1))
+            bits = np.zeros(len(att.aggregation_bits), bool)
+            bits[on[0]] = True
+            bits[rng.choice(on[1:], k - 1, replace=False)] = True
+            out.append(T.Attestation(aggregation_bits=bits.tolist(),
+                                     data=att.data,
+                                     signature=att.signature))
+    return out
+
+
+def phase_produce_mainnet(torch, hw: dict, ctx: dict) -> dict:
+    """15(b): production at 2^20 validators through
+    ``InProcessBeaconNode.produce_block`` on chains booted by
+    ``from_checkpoint`` from 13(b)'s anchor (outside the timed window),
+    whose op pools hold 13(b)'s 128 real aggregates and, after each,
+    ``PACK_SUBSETS`` subset aggregates of it: ≥ 2048 candidates, so the
+    pack runs the columnar path and the torch rounds on the card.  The
+    block's slot is 13(b)'s; adopted (after ``_advance_and_prime``) and
+    serial routes, each timed once on a host clock ending in a sync, must
+    give byte-equal blocks; the selection equals CELF's on the same CSR,
+    and the rounds and CELF are then timed on that CSR (the median of
+    ``PACK_WARM_RUNS`` warm calls each, in turns); the state root equals
+    the host oracle's; signed with the proposer's derived key, the block
+    imports on the card and becomes the head."""
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
+    from lighthouse_tpu_torch.common.tracing import TRACER, stage_split
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.op_pool import device_pack as DP
+    from lighthouse_tpu_torch.op_pool.max_cover import greedy_pack
+    from lighthouse_tpu_torch.state_transition import SignatureStrategy
+    from lighthouse_tpu_torch.state_transition.helpers import (
+        compute_signing_root, get_domain)
+    from lighthouse_tpu_torch.state_transition.per_block import process_block
+    from lighthouse_tpu_torch.types import Domain, ForkName
+    from lighthouse_tpu_torch.validator_client import InProcessBeaconNode
+
+    preset, spec, T = ctx["preset"], ctx["spec"], ctx["T"]
+    sb = ctx["block"]
+    slot = int(sb.message.slot)
+    real = list(sb.message.body.attestations)
+    subsets = subset_aggregates(T, real, np.random.default_rng(SEED + 15))
+    reveal = bytes(sb.message.body.randao_reveal)
+    anchor_root = ctx["anchor"].message.tree_hash_root()
+
+    def chain_with_pool():
+        c = checkpoint_chain(ctx["parent"], ctx["anchor"], preset, spec, T,
+                             ctx["pubkey_cache"])
+        for att, committee in zip(real, ctx["committees"]):
+            c.op_pool.insert_attestation(att, committee)
+        for i, att in enumerate(subsets):
+            c.op_pool.insert_attestation(att,
+                                         ctx["committees"][i // PACK_SUBSETS])
+        check(c.op_pool.num_attestations() == len(real) + len(subsets),
+              "15(b): the pool merged aggregates")
+        return c
+
+    packs = []
+    pack = DP.greedy_pack_device
+
+    def recording_pack(flat_e, flat_w, offsets, n_elements, limit, **kw):
+        chosen = pack(flat_e, flat_w, offsets, n_elements, limit, **kw)
+        packs.append((flat_e, flat_w, offsets, n_elements, limit, chosen,
+                      dict(DP.LAST_PACK_STATS)))
+        return chosen
+
+    def produce(c, label):
+        """One timed production on ``c``: the block, its split, the
+        launches and the ledger's bytes."""
+        node = InProcessBeaconNode(c)
+        TRACER.reset()
+        TRACER.set_slot(slot)
+        DP.reset_stats()
+        zero_all_launches()
+        ledger0 = LEDGER.transfer_totals()
+        block, wall = timed(torch, lambda: node.produce_block(slot, reveal))
+        moved = ledger_moved(LEDGER, ledger0)
+        after = LEDGER.transfer_totals()
+        return block, {
+            "route": label, "wall_ms": wall, "launches": all_launches(),
+            "pack": dict(DP.LAST_PACK_STATS),
+            "state": stage_split("production"),
+            "spans": span_split(TRACER, slot, PRODUCE_SPANS),
+            "ledger": {"h2d": moved["h2d"], "d2h": moved["d2h"],
+                       "h2d_by": moved["h2d_by"],
+                       "op_pool_h2d": after["op_pool"][0]
+                       - ledger0["op_pool"][0],
+                       "op_pool_d2h": after["op_pool"][1]
+                       - ledger0["op_pool"][1]}}
+
+    t0 = time.perf_counter()
+    ca = chain_with_pool()
+    cb = chain_with_pool()
+    boot_s = time.perf_counter() - t0
+    _, advance_ms = timed(torch, lambda: ca._advance_and_prime(slot))
+    check((anchor_root, slot) in ca._advanced_states,
+          "15(b): the advance was not cached")
+    DP.greedy_pack_device = recording_pack
+    TRACER.enable()
+    try:
+        adopted_block, adopted = produce(ca, "adopted")
+        serial_block, serial = produce(cb, "serial")
+    finally:
+        TRACER.disable()
+        DP.greedy_pack_device = pack
+    check((ca._produce_adopted, ca._produce_serial, cb._produce_adopted,
+           cb._produce_serial) == (1, 0, 0, 1),
+          "15(b): the routes were not adopted and serial")
+    check(type(adopted_block).serialize(adopted_block)
+          == type(serial_block).serialize(serial_block),
+          "15(b): the adopted and serial blocks differ")
+    check(len(packs) == 2
+          and all(p[6].get("device", "").startswith("cuda") for p in packs)
+          and packs[0][6]["candidates"] >= 2048,
+          f"15(b): the pack did not run the rounds on the card on >= 2048 "
+          f"candidates: {[p[6] for p in packs]}")
+    for flat_e, flat_w, offsets, n_el, limit, chosen, _ in packs:
+        celf, _, _ = greedy_pack(flat_e, flat_w, offsets, n_el, limit)
+        check(list(chosen) == list(celf),
+              "15(b): the torch rounds' selection != CELF's")
+    # the rounds against CELF on the production CSR, in turns
+    csr = packs[0][:5]
+    rounds_ms, celf_ms = [], []
+    for i in range(PACK_WARM_RUNS):
+        for path in (("torch", "celf") if i % 2 == 0 else ("celf", "torch")):
+            if path == "torch":
+                rounds_ms.append(timed(torch, lambda: pack(*csr))[1])
+            else:
+                celf_ms.append(timed(torch, lambda: greedy_pack(*csr))[1])
+    packed = adopted_block.body.attestations
+    real_bytes = {type(a).serialize(a) for a in real}
+    check(0 < len(packed) <= len(real)
+          and all(type(a).serialize(a) in real_bytes for a in packed),
+          "15(b): the block packed a subset aggregate")
+    check(adopted["launches"]["hash64"] > 0,
+          f"15(b): the state root launched no hash64: "
+          f"{adopted['launches']}")
+
+    # the host oracle: the same block on the parent advanced on the host
+    t0 = time.perf_counter()
+    os.environ["LIGHTHOUSE_TPU_DEVICE_STATE"] = "0"
+    try:
+        scratch = ctx["adv"].copy()
+        process_block(scratch, T.signed_block_cls(ForkName.CAPELLA)(
+            message=ssz_copy(adopted_block),
+            signature=bls.INFINITY_SIGNATURE), ForkName.CAPELLA, preset,
+            spec, T, strategy=SignatureStrategy.NO_VERIFICATION)
+        want_root = scratch.tree_hash_root()
+    finally:
+        os.environ.pop("LIGHTHOUSE_TPU_DEVICE_STATE", None)
+    oracle_s = time.perf_counter() - t0
+    del scratch
+    check(bytes(adopted_block.state_root) == want_root,
+          "15(b): the produced block's state root != the host oracle's")
+
+    # signed with the proposer's derived key, it imports on the card
+    proposer = int(adopted_block.proposer_index)
+    check(proposer == int(sb.message.proposer_index),
+          "15(b): the proposer differs from 13(b)'s")
+    domain = get_domain(ctx["adv"], Domain.BEACON_PROPOSER,
+                        slot // preset.SLOTS_PER_EPOCH, preset)
+    signed = T.signed_block_cls(ForkName.CAPELLA)(
+        message=adopted_block, signature=bls.SecretKey(
+            GEN_SK0 + GEN_SK_STEP * proposer).sign(compute_signing_root(
+                adopted_block, domain)).serialize())
+    zero_all_launches()
+    root, import_ms = timed(torch, lambda: InProcessBeaconNode(
+        ca).publish_block(signed))
+    launched_import = all_launches()
+    check(root == adopted_block.tree_hash_root() and ca.head.root == root,
+          "15(b): the produced block did not become the head")
+    missing = [k for k in PRODUCE_PATH_KERNELS if launched_import[k] == 0]
+    check(not missing, f"15(b): the import launched no {missing}")
+
+    def split(r):
+        p = r["pack"]
+        return {"wall_ms": r["wall_ms"], "state_ms": r["state"],
+                "pack": {k: p.get(k) for k in (
+                    "csr_build_ms", "coverage_ms", "stage_ms",
+                    "select_rounds_ms", "candidates", "entries",
+                    "selected")},
+                "spans_ms": r["spans"], "ledger": r["ledger"]}
+
+    summary = {
+        "validators": len(ctx["parent"].validators), "slot": slot,
+        "pool": len(real) + len(subsets), "packed": len(packed),
+        "advance_and_prime_ms": advance_ms, "chain_boot_s": boot_s,
+        "adopted": split(adopted), "serial": split(serial),
+        "launches_production": adopted["launches"],
+        "launches_serial": serial["launches"],
+        "pack_bound_ms": DP.modeled_pack_ms(
+            packs[0][6]["entries"], packs[0][6]["candidates"],
+            packs[0][6]["rounds"]),
+        "rounds_warm_ms": statistics.median(rounds_ms),
+        "rounds_warm_ms_runs": rounds_ms,
+        "celf_ms": statistics.median(celf_ms), "celf_ms_runs": celf_ms,
+        "import_ms": import_ms, "launches_import": launched_import,
+        "host_oracle_s": oracle_s, "card": hw["card"]}
+    print("15(b) production at 2^%d validators through InProcessBeaconNode."
+          "produce_block (adopted == serial byte for byte, the torch pack "
+          "== CELF, the state root == the host oracle's, the signed block "
+          "imported and became the head): %s" % (
+              len(ctx["parent"].validators).bit_length() - 1,
+              json.dumps(summary)))
+    return summary
+
+
+def phase_pack_baseline(torch, hw: dict) -> dict:
+    """15(c): BASELINE row 5 — ``bench_pack_attestations(100_000)`` at
+    2^20 validators (the pool built outside the timed window), the
+    ``get_attestations`` of its pool on the torch rounds and with the
+    host CELF ``greedy_pack`` in the rounds' place: the median of 5 warm
+    calls each (host clock ending in a sync), the rounds alone, the
+    bound, the CUDA launches of one pack (torch.profiler) and its bytes
+    (ledger).  The two paths run in turns, after one call of each.  Both
+    pack the same candidates in the same order."""
+    from lighthouse_tpu_torch import op_pool as OP
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
+    from lighthouse_tpu_torch.op_pool import device_pack as DP
+    from lighthouse_tpu_torch.op_pool.max_cover import greedy_pack
+
+    bench_ms, bench_n = OP.bench_pack_attestations(PACK_BENCH_AGGREGATES)
+    check(bench_n > 0
+          and DP.LAST_PACK_STATS.get("device", "").startswith("cuda"),
+          f"15(c): bench_pack_attestations packed {bench_n} on "
+          f"{DP.LAST_PACK_STATS.get('device')}")
+    t0 = time.perf_counter()
+    pool, state, T = OP.bench_pool(PACK_BENCH_AGGREGATES)
+    build_s = time.perf_counter() - t0
+
+    def pack():
+        return [type(a).serialize(a) for a in pool.get_attestations(state, T)]
+
+    celf_ms = []
+    rounds = DP.greedy_pack_device
+
+    def celf(flat_e, flat_w, offsets, n_elements, limit, **_):
+        t = time.perf_counter()
+        chosen, _, _ = greedy_pack(flat_e, flat_w, offsets, n_elements,
+                                   limit)
+        celf_ms.append((time.perf_counter() - t) * 1e3)
+        return chosen
+
+    def run(path):
+        """One timed call on ``path`` ("torch" or "celf", the CELF oracle
+        swapped in for the rounds)."""
+        DP.greedy_pack_device = rounds if path == "torch" else celf
+        try:
+            ledger0 = LEDGER.transfer_totals()
+            packed, ms = timed(torch, pack)
+            after = LEDGER.transfer_totals()
+        finally:
+            DP.greedy_pack_device = rounds
+        return {"ms": ms, "packed": packed,
+                "stats": dict(DP.LAST_PACK_STATS),
+                "h2d": after["op_pool"][0] - ledger0["op_pool"][0],
+                "d2h": after["op_pool"][1] - ledger0["op_pool"][1]}
+
+    zero_all_launches()
+    run("torch")                  # one call of each first, not kept
+    run("celf")
+    dev, host = [], []
+    for i in range(PACK_WARM_RUNS):   # in turns: T C, C T, T C, ...
+        for path in (("torch", "celf") if i % 2 == 0 else ("celf", "torch")):
+            (dev if path == "torch" else host).append(run(path))
+    check(all(k == 0 for k in all_launches().values()),
+          "15(c): the pack launched a port kernel")
+    prof = profile_call(torch, hw, "15(c) one pack, torch rounds", pack)
+    check(all(r["packed"] == dev[0]["packed"] for r in dev + host),
+          "15(c): the torch rounds and CELF packed different lists")
+    st = dev[-1]["stats"]
+    bound = DP.modeled_pack_ms(st["entries"], st["candidates"],
+                               st["rounds"])
+
+    def med(rows, key):
+        return statistics.median(r[key] for r in rows)
+
+    summary = {
+        "aggregates": PACK_BENCH_AGGREGATES, "validators": 1 << 20,
+        "candidates": st["candidates"], "entries": st["entries"],
+        "packed": len(dev[0]["packed"]), "pool_build_s": build_s,
+        "bench_pack_attestations_ms": bench_ms,
+        "torch_ms": med(dev, "ms"), "torch_ms_runs": [r["ms"] for r in dev],
+        "celf_ms": med(host, "ms"), "celf_ms_runs": [r["ms"] for r in host],
+        "select_rounds_ms": statistics.median(
+            r["stats"]["select_rounds_ms"] for r in dev),
+        "stage_ms": statistics.median(r["stats"]["stage_ms"] for r in dev),
+        "csr_build_ms": med([r["stats"] for r in dev], "csr_build_ms"),
+        "coverage_ms": med([r["stats"] for r in dev], "coverage_ms"),
+        "celf_greedy_ms": statistics.median(celf_ms[1:]),
+        "bound_ms": bound, "bound_by": "bytes",
+        "launches_per_pack": prof["kernels"],
+        "copies_per_pack": prof["copies"],
+        "profiled": {"wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+                     "idle_share": 1 - prof["busy_ms"] / prof["wall_ms"]},
+        "bytes_per_pack": {"h2d": dev[-1]["h2d"], "d2h": dev[-1]["d2h"]},
+        "card": hw["card"]}
+    print("15(c) BASELINE row 5, get_attestations over %d pooled aggregates "
+          "at 2^20 validators, torch rounds vs CELF (the same %d "
+          "attestations in the same order): %s" % (
+              PACK_BENCH_AGGREGATES, summary["packed"], json.dumps(summary)))
+    return summary
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--race-child"]:
         race_child(sys.argv[2])
@@ -3471,11 +4028,17 @@ def main() -> None:
 
     device.set_default_device("cuda")
     t_start = time.perf_counter()
+
+    def lap(phases: str) -> None:
+        print(f"[phases {phases} done at "
+              f"{time.perf_counter() - t_start:.1f} s]", flush=True)
+
     from lighthouse_tpu_torch.crypto import bls, fields as F
     from lighthouse_tpu_torch.crypto import pairing_kernel as pk
     hw = phase_build(torch, mk, pk, cuda_build)
     kern = phase_kernels(torch, mk, hw)
     state = phase_state_root(torch, hw)
+    lap("1-4")
 
     t0 = time.perf_counter()
     brng = np.random.default_rng(SEED)
@@ -3490,6 +4053,7 @@ def main() -> None:
     bk = phase_bls_kernels(torch, hw, sets, rand_fn)
     bv = phase_bls_verify(torch, hw, sets, rand_fn,
                           {k: t["ms"] for k, t in bk["timing"].items()})
+    lap("5-6")
 
     from lighthouse_tpu_torch.crypto import curve as C
     from lighthouse_tpu_torch.crypto import hash_to_curve as H2C
@@ -3525,12 +4089,21 @@ def main() -> None:
     pf = phase_profiles(torch, hw)
     phase_crossover(torch, hw, gsets, grand)
     phase_proof_engine(torch, hw, state.pop("state"))
+    lap("7-12")
     phase_import_minimal(torch, hw)
-    imp = phase_import_mainnet(torch, hw, all_keys, {
+    lap("13(a)")
+    imp, ctx = phase_import_mainnet(torch, hw, all_keys, {
         **{k: t["ms"] for k, t in bk["timing"].items()},
         **{k: t["ms"] for k, t in gk["timing"].items()}})
     del all_keys
+    lap("13(b)")
     phase_fork_choice(torch, hw)
+    lap("14")
+    phase_produce_minimal(torch, hw)
+    production = phase_produce_mainnet(torch, hw, ctx)
+    del ctx
+    phase_pack_baseline(torch, hw)
+    lap("15")
     from lighthouse_tpu_torch.common.device_ledger import LEDGER
     print("device ledger: " + json.dumps(LEDGER.snapshot()))
 
@@ -3560,7 +4133,9 @@ def main() -> None:
                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                "library_ms": None,
-               "launches_import": imp["launches_per_import"].get(name, 0)}
+               "launches_import": imp["launches_per_import"].get(name, 0),
+               "launches_production":
+                   production["launches_production"].get(name, 0)}
         if "chain_bound_ms" in t:      # a single dependent chain
             out.update({k: t[k] for k in ("chain_bound_ms", "chain_products",
                                           "rate_bound_ms", "binds")})

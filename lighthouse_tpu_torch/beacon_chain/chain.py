@@ -7,11 +7,11 @@ drives the staged block pipeline (``process_block`` —
 ``beacon_chain.rs:2599``), the batched attestation path
 (``apply_attestation_to_fork_choice`` — ``:1858``), head recomputation
 (``canonical_head.rs`` — an immutable cached snapshot so readers never
-lock) and the per-slot task (``:5322``).
+lock), block production from the op pool (``produce_block`` —
+``:3526``) and the per-slot task (``:5322``).
 
-Not ported yet: block production from the op pool (with the op pool's
-packing), the streaming verification service and light-client updates —
-the ``lc_*`` attributes stay ``None``.
+Not ported yet: the streaming verification service and light-client
+updates — the ``lc_*`` attributes stay ``None``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import List
 
 import numpy as np
 
+from ..common import tracing
 from ..common.metrics import Histogram, observe
 from ..common.tracing import TRACER
 from ..fork_choice import ForkChoice
@@ -46,6 +47,13 @@ from .observed import (
     ObservedAttesters,
     ObservedBlockProducers,
 )
+
+# Stage dict for the `production` tracing source: the last production's
+# state copy and slot advance (nothing to advance when it adopted the
+# pre-advanced state).
+LAST_PRODUCTION_TIMINGS: dict = {}
+
+tracing.register_stage_source("production", lambda: LAST_PRODUCTION_TIMINGS)
 
 
 @dataclass
@@ -243,6 +251,12 @@ class BeaconChain:
             "block_production_seconds_local", "",
             buckets=(0.005, 0.01, 0.025, 0.05, 0.1, 0.167, 0.25, 0.333,
                      0.5, 1.0, 2.0, 4.0))
+        # Pre-advance adoption counters (GIL-atomic ints): adopted =
+        # production found the pre-advanced state for the unchanged head;
+        # serial = it advanced at production time (cold start or a head
+        # change since the advance).
+        self._produce_adopted = 0
+        self._produce_serial = 0
         slot_seconds = getattr(self.spec, "seconds_per_slot", 12)
         # Evaluation cadence ≈ slot cadence: hysteresis counts
         # EVALUATIONS, and the HTTP routes also tick — without this a
@@ -1028,6 +1042,88 @@ class BeaconChain:
         :meth:`process_attestation_batch` (``kind`` is the shedding class
         the service would read)."""
         return self.process_attestation_batch(attestations)
+
+    # -- production ----------------------------------------------------------
+
+    def produce_block_components(self, slot: int, randao_reveal: bytes,
+                                 graffiti: bytes = b"") -> object:
+        """Adopt the pre-advanced state when the head it was built on is
+        still the head, else advance serially
+        (`state_advance_timer.rs:94-106` — the pre-advance is only usable
+        if no block landed in between).  The head is read ONCE so the
+        adoption check and the parent root cannot race a concurrent head
+        swap.  Either state goes to :meth:`produce_block_on_state` as it
+        is, which makes production's one private copy: the cached advance
+        and the head's state stay as they were, whatever production
+        writes."""
+        head = self.head
+        state = None
+        if int(head.state.slot) < slot:
+            adv = self._advanced_states.get((head.root, slot))
+            if adv is not None and int(adv.slot) == slot:
+                state = adv
+        if state is not None:
+            self._produce_adopted += 1
+        else:
+            state = head.state
+            self._produce_serial += 1
+        return self.produce_block_on_state(state, slot, randao_reveal,
+                                           graffiti, _head_root=head.root)
+
+    def note_block_production(self, seconds: float) -> None:
+        """Feed one end-to-end block-production latency into the local
+        SLO histogram (drives the ``block_production_ms`` objective)."""
+        self._slo_production_hist.observe(seconds)
+        observe("block_production_seconds", seconds)
+
+    def _proposer_for(self, slot: int, state, head_root: bytes = None) -> int:
+        """Proposer index for ``slot`` — the duty cache when the lookahead
+        primed it, shuffle-on-demand otherwise."""
+        if head_root is not None:
+            cache = self._duty_caches.get(
+                (head_root, slot // self.preset.SLOTS_PER_EPOCH))
+            if cache is not None:
+                return cache.proposer_at(slot)
+        return get_beacon_proposer_index(state, self.preset, slot=slot)
+
+    def produce_block_on_state(self, state, slot: int, randao_reveal: bytes,
+                               graffiti: bytes = b"",
+                               _head_root: bytes = None) -> object:
+        """Assemble an unsigned block's parts from the op pool
+        (`produce_block_on_state`, `beacon_chain.rs:4133`).  ``state`` is
+        never written: the parts' ``state`` is a private copy of it at
+        ``slot``, which the caller may apply the block to.  The copy
+        shares the device-resident columns copy-on-write but copies each
+        host master (tens of ms at 2^20 validators); its time and the
+        slot advance's land in the ``production`` stage source."""
+        t0 = time.perf_counter()
+        state = state.copy()
+        t1 = time.perf_counter()
+        if int(state.slot) < slot:
+            state = process_slots(state, slot, self.preset, self.spec,
+                                  self.T)
+        LAST_PRODUCTION_TIMINGS.clear()
+        LAST_PRODUCTION_TIMINGS.update(
+            copy_ms=round((t1 - t0) * 1e3, 3),
+            advance_ms=round((time.perf_counter() - t1) * 1e3, 3))
+        proposer = self._proposer_for(slot, state, _head_root)
+        atts = self.op_pool.get_attestations(state, self.T)
+        proposer_slashings, attester_slashings, exits = \
+            self.op_pool.get_slashings_and_exits(state)
+        changes = self.op_pool.get_bls_to_execution_changes(state)
+        return dict(
+            slot=slot, proposer_index=proposer,
+            parent_root=_head_root if _head_root is not None
+            else self.head.root,
+            attestations=atts,
+            proposer_slashings=proposer_slashings,
+            attester_slashings=attester_slashings,
+            voluntary_exits=exits,
+            bls_to_execution_changes=changes,
+            randao_reveal=randao_reveal,
+            graffiti=graffiti,
+            state=state,
+        )
 
 
 class _Indexed:

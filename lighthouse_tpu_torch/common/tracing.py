@@ -308,11 +308,17 @@ def _src_replay() -> dict:
     return LAST_REPLAY_TIMINGS
 
 
+def _src_op_pool() -> dict:
+    from ..op_pool.device_pack import LAST_PACK_STATS
+    return LAST_PACK_STATS
+
+
 _STAGE_SOURCES: Dict[str, Callable[[], dict]] = {
     "block": _src_block,
     "epoch": _src_epoch,
     "block_sigs": _src_block_sigs,
     "replay": _src_replay,
+    "op_pool": _src_op_pool,
 }
 
 

@@ -119,16 +119,16 @@ class DeviceColumn:
 
     # -- host/device plumbing ------------------------------------------------
 
-    def _pull(self) -> None:
-        host = to_host(self._dev, "packed_cache").view(
-            _host_dtype(self._dev))
+    def _pull(self, subsystem: str = "packed_cache") -> None:
+        host = to_host(self._dev, subsystem).view(_host_dtype(self._dev))
         object.__setattr__(self, "_host", host)
         object.__setattr__(self, "_stale", False)
 
-    def _master(self) -> np.ndarray:
-        """Writable host master (pulls first if the device is ahead)."""
+    def _master(self, subsystem: str = "packed_cache") -> np.ndarray:
+        """Writable host master (pulls first if the device is ahead, the
+        bytes noted to the ledger under ``subsystem``)."""
         if self._stale:
-            self._pull()
+            self._pull(subsystem)
         return self._host
 
     def _leave_adopted(self) -> None:
@@ -144,9 +144,10 @@ class DeviceColumn:
             # delta, only a full diff recovers it.
             object.__setattr__(self, "_all", True)
 
-    def host(self) -> np.ndarray:
-        """Read-only view of the current column values."""
-        v = self._master().view()
+    def host(self, subsystem: str = "packed_cache") -> np.ndarray:
+        """Read-only view of the current column values; a pull from the
+        device is noted to the ledger under ``subsystem``."""
+        v = self._master(subsystem).view()
         v.flags.writeable = False
         return v
 

@@ -13,7 +13,8 @@ same bytes, each over ``HotColdDB.memory``:
 - at the end the fork choice node columns, the events published, the
   raw kv rows of every store column (blocks, states, summaries, the
   journal, the cold tier, fork choice, op pool, metadata) and the op
-  pool's bytes (``encode_op_pool``) are byte-equal;
+  pool's bytes (``encode_op_pool``) are byte-equal, and the pool packs
+  the same attestations for the next slot's block;
 - each rejection of ``tests/test_beacon_chain.py`` raises the same class
   from both packages;
 - ``persist`` → ``resume`` over a ``SqliteStore`` datadir gives the same
@@ -416,9 +417,20 @@ def test_blob_commitments_need_the_kzg_port():
         da.put_sidecars([object()])
 
 
-def test_op_pool_has_no_packing_yet():
-    from lighthouse_tpu_torch.op_pool import OperationPool
-    assert not hasattr(OperationPool, "get_attestations")
+def test_op_pool_packs_like_the_reference(reference_run, port_run):
+    """The chain's pool at the end of the run packs, for the next slot's
+    block, the same attestations as the JAX package's pool."""
+    packed = []
+    for chain in (reference_run[0], port_run[0]):
+        pkg = type(chain).__module__.split(".")[0]
+        per_slot = _mod(pkg, "state_transition.per_slot")
+        state = per_slot.process_slots(chain.head.state.copy(),
+                                       chain.head.slot + 1, chain.preset,
+                                       chain.spec, chain.T)
+        packed.append([_ser(a) for a in
+                       chain.op_pool.get_attestations(state, chain.T)])
+    assert packed[1] == packed[0]
+    assert packed[0], "the pool packed nothing"
 
 
 def test_slo_engine_reads_the_chain_over_fixed_windows(port_run):

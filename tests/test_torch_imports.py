@@ -68,6 +68,8 @@ _DEVICE_CALLS = [
     "pipeline.ChunkStager([np.zeros(8, np.uint32)])",
     "device_proto_array.DeviceProtoArrayForkChoice().compute_deltas("
     "np.zeros(4, np.uint64))",
+    "device_pack.greedy_pack_device(np.array([1]), np.array([32]), "
+    "np.array([0, 1]), 64, 4)",
 ]
 
 
@@ -84,6 +86,7 @@ def device_call_outcomes() -> dict:
         "from lighthouse_tpu_torch.common import compile_cache\n"
         "from lighthouse_tpu_torch.parallel import pipeline\n"
         "from lighthouse_tpu_torch.fork_choice import device_proto_array\n"
+        "from lighthouse_tpu_torch.op_pool import device_pack\n"
         "assert device.default_device().type == 'cuda'\n"
         f"for call in {_DEVICE_CALLS!r}:\n"
         "    try:\n"
@@ -103,7 +106,7 @@ def test_default_device_is_cuda_and_raises_without_gpu(call,
 
 # The modules the native library, device ledger, chunk stager and proof
 # engine slice added, then those of the block-import slice, then those of
-# the beacon-chain slice.
+# the beacon-chain slice, then those of the block-production slice.
 _NEW_MODULES = [
     "lighthouse_tpu_torch.crypto.native",
     "lighthouse_tpu_torch.common.device_ledger",
@@ -155,6 +158,14 @@ _NEW_MODULES = [
     "lighthouse_tpu_torch.beacon_chain.data_availability",
     "lighthouse_tpu_torch.beacon_chain.chain",
     "lighthouse_tpu_torch.common.slo",
+    "lighthouse_tpu_torch.op_pool.device_pack",
+    "lighthouse_tpu_torch.common.logging",
+    "lighthouse_tpu_torch.validator_client",
+    "lighthouse_tpu_torch.validator_client.slashing_protection",
+    "lighthouse_tpu_torch.validator_client.signing",
+    "lighthouse_tpu_torch.validator_client.store",
+    "lighthouse_tpu_torch.validator_client.beacon_node",
+    "lighthouse_tpu_torch.validator_client.services",
 ]
 
 
