@@ -189,6 +189,38 @@ Phases, each of which fails the run with a non-zero exit:
     beside their bound, the CUDA launches of one pack (torch.profiler)
     and its bytes (ledger).  Then the device ledger's snapshot (with the
     caching allocator's memory figures).
+16. Deneb data availability (``csrc/kzg_fr.cu`` and the BLS pairing
+    kernels).  Six mainnet-width blobs (4096 elements, ``random.Random(0)``
+    as ``bench.py:1371-1405``) under ``verification_setup(4096)``, their
+    commitments and proofs made once by the known-τ paths in spawned host
+    workers (which also run the host oracle and the host fold beside the
+    card).  (a) ``lh_kzg_eval_kernel`` against its plain version in
+    canonical words at (6, 4096) on the fixture, on an edge batch (z on a
+    domain root, the zero blob, a blob of r − 1) and at B = 1, the six
+    fixture values equal to the host oracle; timed (median of 10) beside
+    the function's rate bound and chain bound (its least products and
+    shortest dependent chain; a probe times one dependent Fr product) and
+    the kernel's own products and path.  (b) ``verify_blob_kzg_proof_batch`` on the card's route: the
+    valid batch, swapped proofs, an altered element, a wrong commitment, a
+    batch holding the zero blob, a single blob, an off-subgroup commitment
+    (``KzgError``), each equal to the host fold's verdict; one valid batch
+    launches exactly ``kzg_eval``, ``miller_fold`` and ``finalize`` once
+    (counters zeroed before, read after); 5 warm calls with the stage
+    split, ledger bytes, a profile.  (c) ``DataAvailabilityChecker.
+    put_sidecars`` on the six sidecars and ``put_sidecar`` on one, timed; a
+    tampered inclusion proof and a wrong KZG proof raise
+    ``BlobSidecarError``.  (d) 13(b)'s anchor upgraded to Deneb
+    (``upgrade_to_deneb`` at its epoch; its root held to a fresh SSZ
+    copy's, 13(b)'s parent unchanged) and 13(b)'s block shape with the
+    six commitments, imported at 2^20 validators through ``BeaconChain``:
+    ``BlobsUnavailable`` without sidecars, then ``put_sidecars`` and the
+    retry make it the head, its post-state root the host oracle's, its six
+    sidecars read back from the store byte for byte, every kernel of the
+    path launched, the state transition's split beside 13(b)'s.  (e) A
+    MINIMAL chain at 64 validators crossing
+    ``deneb_fork_epoch = 1`` with real signatures and blob blocks of width
+    4 (``embedded_setup(4)``), on the card and on a CPU chain: every head
+    and post-state equal.
 
 Device busy times and CUDA launch counts come from torch.profiler's
 device-side events only (kernels, copies, memsets): the host op that
@@ -204,8 +236,10 @@ Miller+fold, hash-to-G2 and sigma take ``ms`` at the shared path's
 shapes and add ``ms_general`` and its bounds at the general path's,
 prepare adds ``ms_block`` and its chain bounds on the block batch's two
 items; every row adds ``launches_import``, its launches in one warm
-phase-13(b) import, and ``launches_production``, its launches in phase
-15(b)'s adopted production); the last line is
+phase-13(b) import, ``launches_production``, its launches in phase
+15(b)'s adopted production, and ``launches_kzg``, its launches in one
+phase-16(b) batch; ``kzg_eval`` has its rate and chain bounds at (6,
+4096)); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing a result.
 """
@@ -246,8 +280,9 @@ SPIN_CYCLES = 20_000_000      # ~10 ms at 2 GHz: the queue ahead of queued_ms
 MAX_WARM_LAUNCHES = 200       # CUDA kernels per warm general verify
 # A launch counter that counts a call of two CUDA kernels (the sigma
 # ladder, then its butterfly), and the traced kernel names it counts.
-KERNELS_PER_CALL = {"sigma": 2}
-TRACE_NAMES = {"sigma_ladder": "sigma", "sigma_fold": "sigma"}
+KERNELS_PER_CALL = {"sigma": 2, "kzg_eval": 2}
+TRACE_NAMES = {"sigma_ladder": "sigma", "sigma_fold": "sigma",
+               "kzg_eval_finish": "kzg_eval"}
 RACECHECK_TIMEOUT_S = 300
 KERNEL_N = 1 << 20            # hash64 pairs / sub-tree leaves timed
 TIMED_RUNS = 20
@@ -301,6 +336,7 @@ def phase_build(torch, mk, pk, cuda_build) -> dict:
     import threading
 
     from lighthouse_tpu_torch.crypto import native
+    from lighthouse_tpu_torch.kzg import device as KD
 
     card = smi("name,power.limit")
     print(f"card: {card}")
@@ -318,9 +354,10 @@ def phase_build(torch, mk, pk, cuda_build) -> dict:
 
     g_native = threading.Thread(target=build_native)
     g_native.start()               # g++ beside the nvcc processes
-    built = cuda_build.build_all(["sha256_merkle", "bls381"])  # 2 nvcc at once
-    mk.kernel_library()
+    built = cuda_build.build_all(["sha256_merkle", "bls381", "kzg_fr"])
+    mk.kernel_library()                     # (3 nvcc at once)
     pk.kernel_library()
+    KD.kernel_library()
     print(f"kernel builds: {time.perf_counter() - t0:.1f} s wall, every "
           f"nvcc started together")
     g_native.join()
@@ -331,7 +368,7 @@ def phase_build(torch, mk, pk, cuda_build) -> dict:
     print(f"native host library: {native.BUILD_INFO['build_s']:.1f} s g++ "
           f"({' '.join(native.GXX_FLAGS)}) -> {native.BUILD_INFO['path']}")
     sass = {}
-    for lib in ("sha256_merkle", "bls381"):
+    for lib in ("sha256_merkle", "bls381", "kzg_fr"):
         took, ptxas = built.get(lib, (0.0, ""))
         path = cuda_build.build_info(lib)["path"]
         print(f"  {lib}: {took:.1f} s nvcc -> {path}")
@@ -354,11 +391,17 @@ def phase_build(torch, mk, pk, cuda_build) -> dict:
           f"cannot price a Montgomery product from SASS: {sass}")
     print(f"SASS instructions per Montgomery product: {instr_per_mont} "
           f"({priced})")
+    # an Fr product: the one-product probe of csrc/kzg_fr.cu, its loads
+    # and stores included
+    instr_per_fr = sass.get("lh_fr_mul_kernel", 0)
+    check(instr_per_fr > 100, f"cannot price an Fr product from SASS: {sass}")
+    print(f"SASS instructions per Fr product: {instr_per_fr} "
+          f"(lh_fr_mul_kernel)")
     clk_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"max SM clock {clk_mhz:.0f} MHz, {sms} SMs")
     return {"card": card, "instr_per_hash": sass["lh_hash64_kernel"],
-            "instr_per_mont": instr_per_mont,
+            "instr_per_mont": instr_per_mont, "instr_per_fr": instr_per_fr,
             "clk_hz": clk_mhz * 1e6, "sms": sms}
 
 
@@ -958,10 +1001,11 @@ def canonical_blocks(planes) -> np.ndarray:
     return out
 
 
-def mont_bound_ms(hw: dict, products: int) -> float:
+def mont_bound_ms(hw: dict, products: int, instr=None) -> float:
     """Least time for ``products`` Montgomery products: their SASS
-    instructions over the card's INT32 issue rate."""
-    return products * hw["instr_per_mont"] / (
+    instructions (``instr`` each, by default a BLS Fq product's) over the
+    card's INT32 issue rate."""
+    return products * (instr or hw["instr_per_mont"]) / (
         INT32_LANES_PER_SM * hw["sms"] * hw["clk_hz"]) * 1e3
 
 
@@ -1023,19 +1067,24 @@ def chain_products(PK, kernel: str, C=None, K=None, M=None) -> int:
     return sswu + 5 + 2 + 2 * 2 * x_adds + 4 * 2 + (1 + ladder + 2)
 
 
-def bounds(hw: dict, products: int, nbytes: int = 0, chain=None) -> dict:
+def bounds(hw: dict, products: int, nbytes: int = 0, chain=None,
+           field: str = "fq") -> dict:
     """The rate bound (operations over the INT32 issue rate, or bytes
     over the memory rate, whichever is larger) and, for a kernel that is
     one dependent chain, its chain bound: the critical path in products
-    times the measured latency of one dependent product."""
-    ops_ms = mont_bound_ms(hw, products)
+    times the measured latency of one dependent product.  ``field`` "fq"
+    prices BLS Fq products, "fr" the KZG kernel's Fr products."""
+    instr = hw["instr_per_fr"] if field == "fr" else hw["instr_per_mont"]
+    latency = (hw["fr_latency_ms"] if field == "fr"
+               else hw.get("mont_latency_ms"))
+    ops_ms = mont_bound_ms(hw, products, instr)
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out = {"bound_ms": max(ops_ms, mem_ms),
            "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
            "products": products}
     if chain is not None:
         out.update(chain_products=chain,
-                   chain_bound_ms=chain * hw["mont_latency_ms"],
+                   chain_bound_ms=chain * latency,
                    rate_bound_ms=out["bound_ms"])
         out["binds"] = ("chain" if out["chain_bound_ms"] > out["bound_ms"]
                         else "rate")
@@ -1977,13 +2026,14 @@ def profile_call(torch, hw: dict, label: str, fn, kernel_ms=None) -> dict:
 
     from lighthouse_tpu_torch.crypto import htc_kernel as HK
     from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.kzg import device as KD
 
-    before = {**HK.LAUNCHES, **PK.LAUNCHES}
+    before = {**HK.LAUNCHES, **PK.LAUNCHES, **KD.LAUNCHES}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = timed(torch, fn)
-    launched = {k: v - before[k] for k, v in {**HK.LAUNCHES,
-                                              **PK.LAUNCHES}.items()}
+    launched = {k: v - before[k] for k, v in {**HK.LAUNCHES, **PK.LAUNCHES,
+                                              **KD.LAUNCHES}.items()}
     devt = device_events(prof)
     traced_busy = sum(d for d, _c, _k in devt) / 1e3
     copies = sum(c for _d, c, k in devt if k.startswith(("Memcpy", "Memset")))
@@ -2505,15 +2555,17 @@ DATADIR_ROOT = os.path.join("build", "chip_smoke_datadir")
 def all_launches() -> dict:
     from lighthouse_tpu_torch.crypto import htc_kernel as HK
     from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.kzg import device as KD
     from lighthouse_tpu_torch.ops import merkle_kernel as mk
-    return {**mk.LAUNCHES, **HK.LAUNCHES, **PK.LAUNCHES}
+    return {**mk.LAUNCHES, **HK.LAUNCHES, **PK.LAUNCHES, **KD.LAUNCHES}
 
 
 def zero_all_launches() -> None:
     from lighthouse_tpu_torch.crypto import htc_kernel as HK
     from lighthouse_tpu_torch.crypto import pairing_kernel as PK
+    from lighthouse_tpu_torch.kzg import device as KD
     from lighthouse_tpu_torch.ops import merkle_kernel as mk
-    zero_launches(mk.LAUNCHES, HK.LAUNCHES, PK.LAUNCHES)
+    zero_launches(mk.LAUNCHES, HK.LAUNCHES, PK.LAUNCHES, KD.LAUNCHES)
 
 
 def genesis_chain(state, preset, spec, T, kv_path=None):
@@ -2960,14 +3012,16 @@ def build_import_parent(T, spec, preset, C, bls, keys, rng):
     return state, sync, anchor
 
 
-def build_import_block(T, spec, preset, bls, adv, sync, rng):
+def build_import_block(T, spec, preset, bls, adv, sync, rng, fork=None,
+                       commitments=()):
     """The block at ``adv.slot`` (``adv``: the parent advanced to it):
     one aggregate per committee of the two slots before it (~90% of each
     committee), a sync aggregate of ~460 of 512, the randao reveal, the
-    execution payload with the expected withdrawals; the state root and
-    the proposal signature are filled in by the caller.  Returns the
-    block, its proposer, the sync participants, every signer and each
-    aggregate's committee."""
+    execution payload with the expected withdrawals; a ``fork`` of Deneb
+    or later (Capella by default) also carries the blob ``commitments``.
+    The state root and the proposal signature are filled in by the
+    caller.  Returns the block, its proposer, the sync participants,
+    every signer and each aggregate's committee."""
     import hashlib as _hl
 
     from lighthouse_tpu_torch.crypto.fields import R
@@ -2979,6 +3033,10 @@ def build_import_block(T, spec, preset, bls, adv, sync, rng):
     from lighthouse_tpu_torch.state_transition.per_block import \
         get_expected_withdrawals
     from lighthouse_tpu_torch.types import Domain, ForkName
+
+    fork = ForkName.CAPELLA if fork is None else fork
+    blob_kw = ({"blob_kzg_commitments": list(commitments)}
+               if fork >= ForkName.DENEB else {})
 
     def sk(v):
         return GEN_SK0 + GEN_SK_STEP * int(v)
@@ -3022,7 +3080,7 @@ def build_import_block(T, spec, preset, bls, adv, sync, rng):
         u64.hash_tree_root(epoch),
         get_domain(adv, Domain.RANDAO, epoch, preset))).serialize()
     hdr = adv.latest_execution_payload_header
-    payload = T.payload_cls(ForkName.CAPELLA)(
+    payload = T.payload_cls(fork)(
         parent_hash=hdr.block_hash,
         prev_randao=get_randao_mix(adv, epoch, preset),
         block_number=hdr.block_number + 1, gas_limit=30_000_000,
@@ -3032,15 +3090,15 @@ def build_import_block(T, spec, preset, bls, adv, sync, rng):
         withdrawals=[T.Withdrawal(index=w[0], validator_index=w[1],
                                   address=w[2], amount=w[3])
                      for w in get_expected_withdrawals(adv, preset)])
-    body = T.body_cls(ForkName.CAPELLA)(
+    body = T.body_cls(fork)(
         randao_reveal=reveal, eth1_data=adv.eth1_data,
         graffiti=b"\x00" * 32, proposer_slashings=[], attester_slashings=[],
         attestations=atts, deposits=[], voluntary_exits=[],
         sync_aggregate=T.SyncAggregate(
             sync_committee_bits=sync_bits,
             sync_committee_signature=signed(sync[sync_bits], sync_root)),
-        execution_payload=payload, bls_to_execution_changes=[])
-    block = T.block_cls(ForkName.CAPELLA)(
+        execution_payload=payload, bls_to_execution_changes=[], **blob_kw)
+    block = T.block_cls(fork)(
         slot=slot, proposer_index=proposer,
         parent_root=adv.latest_block_header.tree_hash_root(),
         state_root=b"\x00" * 32, body=body)
@@ -3275,6 +3333,7 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
         "fork_choice_votes": fc_votes,
         "batch_sets": runs[-1]["sig"]["sets"],
         "warm_runs": IMPORT_WARM_RUNS, "stages_ms": stages,
+        "cold_import_ms": cold["wall_ms"],
         "chain_spans_ms": chain_spans,
         "chain_build_s": {"median": statistics.median(build_s),
                           "max": max(build_s)},
@@ -3298,7 +3357,7 @@ def phase_import_mainnet(torch, hw: dict, keys, kernel_ms: dict) -> dict:
     # cache and the host oracle's parent advanced to the block's slot
     ctx = {"parent": parent, "anchor": anchor, "block": sb,
            "committees": committees, "pubkey_cache": cache, "adv": adv,
-           "preset": preset, "spec": spec, "T": T}
+           "sync": sync, "preset": preset, "spec": spec, "T": T}
     return summary, ctx
 
 
@@ -4014,6 +4073,714 @@ def phase_pack_baseline(torch, hw: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: Deneb data availability on the card
+# ---------------------------------------------------------------------------
+
+KZG_WIDTH = 4096                     # MAINNET FIELD_ELEMENTS_PER_BLOB
+KZG_BLOBS = 6                        # MAX_BLOBS_PER_BLOCK (bench.py:1391)
+KZG_TIMED_RUNS = 10
+KZG_WARM_RUNS = 5
+KZG_PATH_KERNELS = ("kzg_eval", "miller_fold", "finalize")
+FORK_SMALL_VALIDATORS = 64
+FORK_SMALL_SLOTS = 14                # epoch 0 on Capella, then Deneb
+FORK_SMALL_EPOCH = 1                 # deneb_fork_epoch of 16(e)
+
+
+def kzg_worker_init() -> None:
+    """A host worker of phase 16 (spawned: it never touches the card):
+    the native pairing loaded from the parent's build."""
+    from lighthouse_tpu_torch.crypto import native
+    native.available(block=True)
+
+
+def kzg_setup():
+    from lighthouse_tpu_torch.kzg.trusted_setup import verification_setup
+    global _KZG_SETUP
+    if _KZG_SETUP is None:
+        _KZG_SETUP = verification_setup(KZG_WIDTH)
+    return _KZG_SETUP
+
+
+_KZG_SETUP = None
+
+
+def kzg_commit_prove(blob: bytes) -> tuple:
+    """A worker's commitment and proof of one blob (the known-τ paths)."""
+    from lighthouse_tpu_torch.kzg import kzg as K
+    cm = K.blob_to_kzg_commitment(blob, kzg_setup())
+    return cm, K.compute_blob_kzg_proof(blob, cm, kzg_setup())
+
+
+def kzg_oracle_eval(args) -> int:
+    """A worker's host-oracle p(z) of one blob."""
+    from lighthouse_tpu_torch.kzg import fr
+    from lighthouse_tpu_torch.kzg import kzg as K
+    blob, z = args
+    return fr.evaluate_polynomial_in_evaluation_form(
+        K.blob_to_polynomial(blob, KZG_WIDTH), z, kzg_setup().roots)
+
+
+def kzg_host_verdict(args) -> tuple:
+    """A worker's host RLC fold of one batch: its verdict (or the error
+    class it raised) and its wall ms."""
+    from lighthouse_tpu_torch.kzg import kzg as K
+    t0 = time.perf_counter()
+    try:
+        out = bool(K.verify_blob_kzg_proof_batch_host(*args, kzg_setup()))
+    except K.KzgError:
+        out = "KzgError"
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def kzg_verdict(fn):
+    from lighthouse_tpu_torch.kzg import kzg as K
+    try:
+        return bool(fn())
+    except K.KzgError:
+        return "KzgError"
+
+
+def off_subgroup_g1() -> bytes:
+    """A compressed G1 point on the curve but outside the r-order
+    subgroup (the smallest x that gives one)."""
+    from lighthouse_tpu_torch.crypto import curve as C
+    from lighthouse_tpu_torch.crypto import fields as F
+    x = 1
+    while True:
+        y = F.fq_sqrt((x ** 3 + 4) % F.P)
+        if y is not None and not C.g1_subgroup_check((x, y)):
+            return C.g1_compress((x, y))
+        x += 1
+
+
+def event_ms(torch, fn) -> float:
+    """One call of ``fn`` between two CUDA events (a warm call of a slow
+    plain version)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def fermat_chain(bits) -> int:
+    """Dependent products of the shortest sliding-window ladder for the
+    exponent whose bits (most significant first) are ``bits``: over the
+    window k, the odd powers' table (a squaring and 2^(k-1) - 1
+    products), then a squaring a bit after the top window and a product
+    a further window."""
+    top = "".join(str(int(b)) for b in bits).lstrip("0")
+    best = None
+    for k in range(1, 9):
+        i, cost = 0, (2 ** (k - 1) if k > 1 else 0)
+        first = True
+        while i < len(top):
+            if top[i] == "0":
+                cost += 0 if first else 1
+                i += 1
+                continue
+            j = min(i + k, len(top))
+            while top[j - 1] == "0":
+                j -= 1
+            cost += 0 if first else (j - i) + 1
+            first, i = False, j
+        best = cost if best is None else min(best, cost)
+    return best
+
+
+def kzg_eval_products(blobs: int, width: int) -> int:
+    """The fewest Fr products p_i(z_i) needs (the rate bound's count): per
+    blob a batched inversion of the W differences z - w_j (3(W - 1)
+    products and one Fermat inversion), two products a term (f_j·w_j,
+    then its inverse), log2 W squarings for z^W and two products for the
+    factor and the sum; the roots resident in Montgomery form and z
+    converted once on the host."""
+    from lighthouse_tpu_torch.kzg import fr_limb as FL
+    inv = fermat_chain(FL.N_MINUS_2_BITS)
+    return blobs * (3 * (width - 1) + inv + 2 * width
+                    + width.bit_length() - 1 + 2)
+
+
+def kzg_eval_chain(width: int) -> int:
+    """The shortest chain of dependent Fr products p_i(z_i) needs (the
+    chain bound's count): one Fermat inversion on the shortest
+    sliding-window ladder, its product with f_j·w_j, and the sum's
+    product with the factor (z^W, the factor and f_j·w_j off the path).
+    A batched inversion's chain is longer (log2 W levels up and down)."""
+    from lighthouse_tpu_torch.kzg import fr_limb as FL
+    return fermat_chain(FL.N_MINUS_2_BITS) + 2
+
+
+def kzg_eval_products_run(blobs: int, width: int) -> tuple:
+    """What lh_kzg_eval runs (csrc/kzg_fr.cu): (Fr products, dependent
+    products on its path).  An element: the binary Fermat ladder (254
+    squarings, 163 products) and two products; a blob's finishing
+    thread: log2 W squarings, W^-1's conversion and two products, after
+    the first launch."""
+    from lighthouse_tpu_torch.kzg import fr_limb as FL
+    ladder = len(FL.N_MINUS_2_BITS) - 1 + sum(FL.N_MINUS_2_BITS) - 1
+    finish = width.bit_length() - 1 + 3
+    return (blobs * width * (ladder + 2) + blobs * finish,
+            ladder + 1 + finish - 1)
+
+
+def probe_fr_latency(torch, KD, hw: dict) -> None:
+    """One thread's chain of dependent Fr products, checked against its
+    plain chain, timed at two lengths: the difference over the extra
+    products is one product's latency (it prices the eval's chain
+    bound)."""
+    from lighthouse_tpu_torch import device
+    from lighthouse_tpu_torch.kzg.fr import BLS_MODULUS as N
+    x, y = 0x1234567 ** 9 % N, 0x7654321 ** 11 % N
+    xy = device.to_device(KD.ints_words([x, y]), "kzg")
+    check(KD.words_ints(device.to_host(KD.fr_mul_chain_kernel(xy, 64)))
+          == [KD.fr_mul_chain_plain(x, y, 64)],
+          "fr_mul chain kernel != its plain chain")
+    short = cuda_ms(torch, lambda: KD.fr_mul_chain_kernel(xy, CHAIN_SHORT), 5)
+    long_ = cuda_ms(torch, lambda: KD.fr_mul_chain_kernel(xy, CHAIN_LONG), 5)
+    hw["fr_latency_ms"] = (long_ - short) / (CHAIN_LONG - CHAIN_SHORT)
+    print(f"dependent Fr product latency: {hw['fr_latency_ms'] * 1e3:.4f} us "
+          f"({hw['fr_latency_ms'] * 1e-3 * hw['clk_hz']:.0f} cycles at the "
+          f"max SM clock; chains of {CHAIN_SHORT} and {CHAIN_LONG}: "
+          f"{short:.3f} and {long_:.3f} ms; equal to the plain chain of 64) "
+          f"[{hw['card']}]")
+
+
+def phase_kzg_kernel(torch, hw: dict, KD, setup, blobs, zs, oracle) -> dict:
+    """16(a): lh_kzg_eval_kernel against its plain version on the card in
+    canonical words, at (6, 4096) on the mainnet fixture (each value also
+    the host oracle's, ``oracle`` a pending map of the pool), on an edge
+    batch (a z on a domain root, the zero blob, a blob of r - 1, two more
+    hit lanes) and at B = 1; timed beside its rate and chain bounds."""
+    from lighthouse_tpu_torch import device
+    from lighthouse_tpu_torch.kzg.fr import BLS_MODULUS as N
+    W = KZG_WIDTH
+    roots = KD.roots_on_device(setup)
+
+    def on_card(bl, zz):
+        return (device.to_device(KD.blob_words(bl, W), "kzg"),
+                device.to_device(KD.mont_words(zz), "kzg"))
+
+    zero = bytes(32 * W)
+    top = (N - 1).to_bytes(32, "big") * W
+    rz = [int.from_bytes(hashlib.sha256(bytes([i])).digest(), "big") % N
+          for i in range(3)]
+    j = W // 3                          # blob 0's hit lane
+    edge = ([blobs[0], zero, top, blobs[3], blobs[4], blobs[5]],
+            [setup.roots[j], rz[0], rz[1], zs[3], setup.roots[W - 1],
+             setup.roots[0]])
+    cases = {"mainnet (6, 4096)": (blobs, zs), "edge (6, 4096)": edge,
+             "B = 1": ([blobs[2]], [zs[2]]),
+             "B = 1 hit": ([blobs[1]], [setup.roots[7]])}
+    err, vals = 0, {}
+    for name, (bl, zz) in cases.items():
+        f, z = on_card(bl, zz)
+        got = KD.eval_kernel_call(f, z, roots)
+        want = KD.eval_plain(f, z, roots)
+        err = max(err, max_abs_err(torch, got, want))
+        check(torch.equal(got, want), f"16(a) {name}: kzg_eval != plain")
+        vals[name] = KD.words_ints(device.to_host(got))
+    felem = [[int.from_bytes(b[32 * i:32 * i + 32], "big") for i in (j,
+                                                                     W - 1, 0)]
+             for b in (blobs[0], blobs[4], blobs[5])]
+    check(vals["edge (6, 4096)"] == [felem[0][0], 0, N - 1,
+                                     vals["mainnet (6, 4096)"][3],
+                                     felem[1][1], felem[2][2]],
+          f"16(a): the edge batch's values are wrong: "
+          f"{vals['edge (6, 4096)']}")
+    check(vals["B = 1"] == [vals["mainnet (6, 4096)"][2]]
+          and vals["B = 1 hit"] == [int.from_bytes(blobs[1][224:256], "big")],
+          "16(a): B = 1 disagrees with the batch or the hit lane")
+    f, z = on_card(blobs, zs)
+    ms = cuda_ms(torch, lambda: KD.eval_kernel_call(f, z, roots),
+                 KZG_TIMED_RUNS)
+    plain_ms = event_ms(torch, lambda: KD.eval_plain(f, z, roots))
+    probe_fr_latency(torch, KD, hw)
+    nbytes = (len(blobs) * W + len(blobs) + W + len(blobs)) * 32
+    run, run_chain = kzg_eval_products_run(len(blobs), W)
+    t = {"ms": ms, "plain_ms": plain_ms, "shape": [len(blobs), W],
+         **bounds(hw, kzg_eval_products(len(blobs), W), nbytes,
+                  kzg_eval_chain(W), field="fr"),
+         "products_run": run, "chain_products_run": run_chain,
+         "issue_ms_run": mont_bound_ms(hw, run, hw["instr_per_fr"]),
+         "chain_ms_run": run_chain * hw["fr_latency_ms"]}
+    check(oracle.get() == vals["mainnet (6, 4096)"],
+          "16(a): kzg_eval != the host oracle on the mainnet fixture")
+    print(f"16(a) lh_kzg_eval_kernel at (6, {W}): {ms:.4f} ms (median of "
+          f"{KZG_TIMED_RUNS}), plain {plain_ms:.1f} ms, {bound_note(t)} "
+          f"({t['products']} Fr products the function needs); the kernel "
+          f"runs {run} products ({t['issue_ms_run']:.4f} ms of issue) on a "
+          f"{run_chain}-product path ({t['chain_ms_run']:.4f} ms); raw "
+          f"equal to the plain version "
+          f"on {len(cases)} batches (max abs err {err}), the six mainnet "
+          f"values equal to the host oracle [{hw['card']}]")
+    return {"timing": t, "err": err}
+
+
+def kzg_batches(blobs, cms, pfs, zero_cp):
+    """16(b)'s batches, each with the verdict it must give."""
+    from lighthouse_tpu_torch.kzg.fr import BLS_MODULUS as N
+    altered = bytearray(blobs[0])
+    v = int.from_bytes(altered[160:192], "big")
+    altered[160:192] = ((v + 1) % N).to_bytes(32, "big")
+    zero = bytes(32 * KZG_WIDTH)
+    return {
+        "valid": ((blobs, cms, pfs), True),
+        "swapped proofs": ((blobs, cms, [pfs[1], pfs[0]] + pfs[2:]), False),
+        "altered element": (([bytes(altered)] + blobs[1:], cms, pfs), False),
+        "wrong commitment": ((blobs, cms[:2] + [cms[3]] + cms[3:], pfs),
+                             False),
+        "zero blob": ((blobs[:5] + [zero], cms[:5] + [zero_cp[0]],
+                       pfs[:5] + [zero_cp[1]]), True),
+        "single blob": (([blobs[0]], [cms[0]], [pfs[0]]), True),
+        "off-subgroup commitment": ((blobs, [off_subgroup_g1()] + cms[1:],
+                                     pfs), "KzgError"),
+    }
+
+
+def phase_kzg_verify(torch, hw: dict, KD, setup, batches, host,
+                     kernel_ms: dict) -> dict:
+    """16(b): ``verify_blob_kzg_proof_batch`` on the card's route (the
+    port's default on a GPU) on each batch, each verdict the host fold's
+    (``host``: a pending map of the pool); the launches of one valid
+    batch; 5 warm calls with the stage split; ledger bytes; a profile."""
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
+    from lighthouse_tpu_torch.kzg import kzg as K
+    args = batches["valid"][0]
+    K.verify_blob_kzg_proof_batch(*args, setup)          # warm
+    zero_all_launches()
+    check(K.verify_blob_kzg_proof_batch(*args, setup) is True,
+          "16(b): the valid batch did not verify")
+    launched = {k: v for k, v in all_launches().items() if v}
+    check(launched == {k: 1 for k in KZG_PATH_KERNELS},
+          f"16(b): one batch launched {launched}, not kzg_eval, miller_fold "
+          f"and finalize once each")
+    card = {name: kzg_verdict(lambda a=a: K.verify_blob_kzg_proof_batch(
+        *a, setup)) for name, (a, _) in batches.items()}
+    for name, (_, want) in batches.items():
+        check(card[name] == want, f"16(b) {name}: the card gave {card[name]}"
+                                  f", not {want}")
+    walls, splits = [], []
+    ledger0 = LEDGER.transfer_totals()
+    for _ in range(KZG_WARM_RUNS):
+        _, ms = timed(torch, lambda: K.verify_blob_kzg_proof_batch(*args,
+                                                                   setup))
+        walls.append(ms)
+        splits.append(dict(KD.LAST_KZG_TIMINGS))
+    moved = ledger_moved(LEDGER, ledger0)
+    split = {k: statistics.median(s[k] for s in splits)
+             for k in splits[0] if k.endswith("_ms")}
+    prof = profile_call(torch, hw, "16(b) 6-blob KZG batch", lambda:
+                        K.verify_blob_kzg_proof_batch(*args, setup),
+                        kernel_ms)
+    verdicts = dict(zip(batches, host.get()))
+    for name in batches:
+        check(verdicts[name][0] == card[name],
+              f"16(b) {name}: the card gave {card[name]}, the host fold "
+              f"{verdicts[name][0]}")
+    out = {"wall_ms": statistics.median(walls), "split_ms": split,
+           "lanes": splits[0]["lanes"], "launches": launched,
+           "host_fold_ms": verdicts["valid"][1],
+           "ledger": {"h2d": moved["h2d"] // KZG_WARM_RUNS,
+                      "d2h": moved["d2h"] // KZG_WARM_RUNS},
+           "profile": {k: prof[k] for k in ("wall_ms", "busy_ms", "kernels",
+                                            "copies")},
+           "idle_share": 1 - prof["busy_ms"] / prof["wall_ms"],
+           "verdicts": card}
+    print(f"16(b) verify_blob_kzg_proof_batch on the card, {KZG_BLOBS} "
+          f"blobs of {KZG_WIDTH}: {json.dumps(out)} (median of "
+          f"{KZG_WARM_RUNS} warm calls; the host fold's wall on the same "
+          f"batch {verdicts['valid'][1]:.1f} ms, in a worker process; every "
+          f"verdict equal to the host fold's) [{hw['card']}]")
+    return out
+
+
+def build_deneb_import(ctx: dict, keys, cms) -> dict:
+    """16(d)'s set-up: 13(b)'s anchor state upgraded to Deneb at its own
+    epoch (``upgrade_to_deneb``, ``deneb_fork_epoch`` = that epoch), with
+    a Deneb anchor block, then ``build_import_block`` at the next epoch's
+    first slot with the blob commitments ``cms``; the state root from the
+    host oracle.  The upgrade's state is held to a fresh SSZ copy's root
+    (the residency across the upgrade) and the import starts from that
+    copy; 13(b)'s parent must keep its root (copy-on-write).  As in
+    13(b)'s set-up, the copy's registry pubkey → index map is built
+    before any copy of it is made (its build is timed: a node booted from
+    this checkpoint pays it once, in its first block's sync aggregate,
+    and every later copy shares it)."""
+    from dataclasses import replace
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.state_transition import SignatureStrategy
+    from lighthouse_tpu_torch.state_transition.helpers import (
+        compute_signing_root, get_domain)
+    from lighthouse_tpu_torch.state_transition.per_block import process_block
+    from lighthouse_tpu_torch.state_transition.per_slot import process_slots
+    from lighthouse_tpu_torch.state_transition.upgrade import \
+        upgrade_to_deneb
+    from lighthouse_tpu_torch.types import Domain, ForkName
+
+    preset, T = ctx["preset"], ctx["T"]
+    spec = replace(ctx["spec"], deneb_fork_epoch=IMPORT_EPOCH)
+    capella_root = ctx["parent"].tree_hash_root()
+    t0 = time.perf_counter()
+    up = upgrade_to_deneb(ctx["parent"].copy(), IMPORT_EPOCH, preset, spec, T)
+    body = T.body_cls(ForkName.DENEB)()
+    hdr = up.latest_block_header
+    up.latest_block_header = T.BeaconBlockHeader(
+        slot=hdr.slot, proposer_index=hdr.proposer_index,
+        parent_root=hdr.parent_root, state_root=b"\x00" * 32,
+        body_root=body.tree_hash_root())
+    up_roots = (up.tree_hash_root(), type(up).hash_tree_root(up))
+    data = type(up).serialize(up)
+    del up
+    os.environ["LIGHTHOUSE_TPU_DEVICE_STATE"] = "0"
+    try:
+        parent = T.state_cls(ForkName.DENEB).deserialize(data)
+        check(up_roots == (parent.tree_hash_root(),) * 2,
+              "16(d): the upgraded state's root != a fresh copy's")
+        pk0 = parent.validators.col("pubkey")[0].tobytes()
+        t_map = time.perf_counter()
+        check(parent.validators.pubkey_index(pk0) == 0,
+              "16(d): the registry's pubkey index is wrong")
+        map_ms = (time.perf_counter() - t_map) * 1e3
+        slot = int(parent.slot) + preset.SLOTS_PER_EPOCH
+        adv = process_slots(parent.copy(), slot, preset, spec, T)
+        anchor = T.signed_block_cls(ForkName.DENEB)(
+            message=T.block_cls(ForkName.DENEB)(
+                slot=hdr.slot, proposer_index=hdr.proposer_index,
+                parent_root=hdr.parent_root,
+                state_root=bytes(adv.latest_block_header.state_root),
+                body=body), signature=bls.INFINITY_SIGNATURE)
+        block, proposer, n_sync, signers, committees = build_import_block(
+            T, spec, preset, bls, adv, ctx["sync"],
+            np.random.default_rng(SEED + 16), ForkName.DENEB, cms)
+        scratch = adv.copy()
+        process_block(scratch, T.signed_block_cls(ForkName.DENEB)(
+            message=block, signature=bls.INFINITY_SIGNATURE),
+            ForkName.DENEB, preset, spec, T,
+            strategy=SignatureStrategy.NO_VERIFICATION)
+        block.state_root = scratch.tree_hash_root()
+        del scratch
+    finally:
+        os.environ.pop("LIGHTHOUSE_TPU_DEVICE_STATE", None)
+    domain = get_domain(adv, Domain.BEACON_PROPOSER,
+                        slot // preset.SLOTS_PER_EPOCH, preset)
+    sb = T.signed_block_cls(ForkName.DENEB)(
+        message=block, signature=bls.SecretKey(
+            GEN_SK0 + GEN_SK_STEP * proposer).sign(
+            compute_signing_root(block, domain)).serialize())
+    check(bytes(block.parent_root) == anchor.message.tree_hash_root(),
+          "16(d): the block's parent root != the Deneb anchor's root")
+    check(ctx["parent"].tree_hash_root() == capella_root,
+          "16(d): the upgrade changed 13(b)'s Capella parent")
+    cache = ctx["pubkey_cache"]
+    for v in signers | {proposer}:
+        if v not in cache._by_index:
+            cache._by_index[v] = bls.PublicKey(keys[v])
+    print(f"16(d) set-up (host): 13(b)'s anchor upgraded to Deneb at epoch "
+          f"{IMPORT_EPOCH} and the block at slot {slot} "
+          f"({len(block.body.attestations)} aggregates, sync {n_sync}/"
+          f"{len(ctx['sync'])}, {len(cms)} blob commitments) with its state "
+          f"root on the host oracle in {time.perf_counter() - t0:.1f} s; the "
+          f"fresh registry's pubkey map built in {map_ms:.1f} ms")
+    return {"parent": parent, "anchor": anchor, "block": sb, "spec": spec,
+            "slot": slot, "pubkey_cache": cache, "preset": preset, "T": T,
+            "pubkey_map_ms": map_ms}
+
+
+def phase_kzg_gate(torch, hw: dict, setup, sb, sidecars, pfs) -> dict:
+    """16(c): ``DataAvailabilityChecker.put_sidecars`` on the block's six
+    sidecars and ``put_sidecar`` on one (the gossip shape), each timed on
+    a fresh checker; a tampered inclusion proof and a wrong KZG proof
+    raise ``BlobSidecarError``."""
+    from lighthouse_tpu_torch.beacon_chain import (BlobSidecarError,
+                                                   DataAvailabilityChecker)
+    from lighthouse_tpu_torch.types import MAINNET
+    from lighthouse_tpu_torch.types.factory import spec_types
+    T = spec_types(MAINNET)
+
+    def checker():
+        return DataAvailabilityChecker(MAINNET, T, setup=setup)
+
+    checker().put_sidecars(sidecars)                    # warm
+    da = checker()
+    _, six_ms = timed(torch, lambda: da.put_sidecars(sidecars))
+    root = sb.message.tree_hash_root()
+    check(da.missing_indices(sb, root) == [],
+          "16(c): put_sidecars left the block's blobs missing")
+    one = checker()
+    _, one_ms = timed(torch, lambda: one.put_sidecar(sidecars[0]))
+    check(one.missing_indices(sb, root) == list(range(1, len(sidecars))),
+          "16(c): put_sidecar did not cache its sidecar")
+    refused = []
+    for kind in ("inclusion proof", "KZG proof"):
+        bad = T.BlobSidecar.deserialize(T.BlobSidecar.serialize(sidecars[1]))
+        if kind == "inclusion proof":
+            bad.kzg_commitment_inclusion_proof[3] = b"\x5a" * 32
+        else:
+            bad.kzg_proof = pfs[2]
+        try:
+            checker().put_sidecar(bad)
+        except BlobSidecarError as e:
+            refused.append(f"{kind}: {e}")
+            continue
+        fail(f"16(c): a sidecar with a wrong {kind} was accepted")
+    print(f"16(c) the availability gate at mainnet width: put_sidecars of "
+          f"{len(sidecars)} {six_ms:.1f} ms, put_sidecar of one "
+          f"{one_ms:.1f} ms; refused: {'; '.join(refused)} [{hw['card']}]")
+    return {"put_sidecars_ms": six_ms, "put_sidecar_ms": one_ms}
+
+
+def phase_kzg_import(torch, hw: dict, dctx: dict, sidecars, imp) -> dict:
+    """16(d): the Deneb block at 2^20 through ``BeaconChain.process_block``
+    on chains booted from the Deneb checkpoint, the counted (cold) run and
+    a warm one: BlobsUnavailable without sidecars, then ``put_sidecars``
+    and the retry imports; the head, the post-state root (the host
+    oracle's), the six sidecars from the store byte for byte, every
+    kernel of the path launched in the counted run."""
+    from lighthouse_tpu_torch.beacon_chain import BlobsUnavailable
+    from lighthouse_tpu_torch.common.device_ledger import LEDGER
+    from lighthouse_tpu_torch.common.tracing import TRACER
+    from lighthouse_tpu_torch.state_transition import per_block as PB
+    from lighthouse_tpu_torch.types.device_state import (is_materialized,
+                                                         materialize_state)
+
+    parent, sb, slot = dctx["parent"], dctx["block"], dctx["slot"]
+    parent_root = parent.tree_hash_root()
+    block_root = sb.message.tree_hash_root()
+
+    def gated_then_imported():
+        """On a chain built anew from the checkpoint: the import refused
+        for its blobs, ``put_sidecars``, the retry; each timed."""
+        c = checkpoint_chain(parent, dctx["anchor"], dctx["preset"],
+                             dctx["spec"], dctx["T"], dctx["pubkey_cache"])
+        c.fork_choice.on_tick(slot)
+        TRACER.reset()
+        TRACER.set_slot(slot)
+        t0 = time.perf_counter()
+        try:
+            c.process_block(sb, is_timely=True)
+        except BlobsUnavailable:
+            pass
+        else:
+            fail("16(d): the block imported without its sidecars")
+        torch.cuda.synchronize()
+        gated = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                 **span_split(TRACER, slot, IMPORT_SPANS),
+                 "chain": span_split(TRACER, slot, CHAIN_SPANS),
+                 "block_phases": dict(PB.LAST_BLOCK_TIMINGS)}
+        _, put_ms = timed(torch, lambda: c.data_availability.put_sidecars(
+            sidecars))
+        root, retry = timed_import(torch, c, sb)
+        check(root == block_root and c.head.root == block_root
+              and c.head.slot == slot, "16(d): the head is not the block")
+        return c, {"gated_import": gated, "put_sidecars_ms": put_ms,
+                   "retry_import": {k: v for k, v in retry.items()
+                                    if k not in ("sig", "block_phases",
+                                                 "ledger")}}
+
+    TRACER.enable()
+    try:
+        zero_all_launches()
+        ledger0 = LEDGER.transfer_totals()
+        check(materialize_state(parent), "16(d): materialize refused")
+        check(type(parent).hash_tree_root(parent) == parent.tree_hash_root()
+              == parent_root, "16(d): the Deneb anchor's device root != its "
+                              "uncached root")
+        c, cold = gated_then_imported()
+        launched = all_launches()
+        moved = ledger_moved(LEDGER, ledger0)
+        post = c.state_at_block_root(block_root)
+        check(is_materialized(post), "16(d): the post-state left the device")
+        check(post.tree_hash_root() == bytes(sb.message.state_root),
+              "16(d): post-state root != the host oracle's")
+        stored = c.store.get_blob_sidecars(block_root)
+        check([type(x).serialize(x) for x in stored]
+              == [type(x).serialize(x) for x in sidecars],
+              "16(d): the store's sidecars != the six sidecars")
+        del c, post
+        c, warm = gated_then_imported()
+        del c
+    finally:
+        TRACER.disable()
+    check(parent.tree_hash_root() == parent_root,
+          "16(d): the import changed the anchor state (copy-on-write)")
+    missing = [k for k in IMPORT_PATH_KERNELS + ("kzg_eval",)
+               if launched[k] == 0]
+    check(not missing, f"16(d): kernels of the path never launched: "
+                       f"{missing} ({launched})")
+    out = {"cold": cold, "warm": warm, "launches": launched,
+           "ledger": {"h2d": moved["h2d"], "d2h": moved["d2h"]},
+           "pubkey_map_ms": dctx["pubkey_map_ms"],
+           "capella_13b": {"cold_import_ms": imp["cold_import_ms"],
+                           "warm_median_ms": imp["stages_ms"],
+                           "block_phases_ms": imp["block_phases_ms"]}}
+    print("16(d) the state transition's split, warm, Deneb beside 13(b)'s "
+          "Capella: " + json.dumps({
+              k: [warm["gated_import"]["block_phases"].get(k),
+                  imp["block_phases_ms"].get(k)]
+              for k in imp["block_phases_ms"]}) + f" [{hw['card']}]")
+    print(f"16(d) a MAINNET Deneb block with {len(sidecars)} blobs at 2^20 "
+          f"validators through BeaconChain, on two chains built anew from "
+          f"the checkpoint (cold: the counted run, launches and bytes from "
+          f"the anchor's materialize on; warm): BlobsUnavailable before its "
+          f"sidecars, then put_sidecars and the retry imported it as the "
+          f"head, its root the host oracle's, its sidecars read back byte "
+          f"for byte: {json.dumps(out)} [{hw['card']}]")
+    return out
+
+
+def phase_kzg(torch, hw: dict, ctx: dict, keys, imp: dict,
+              kernel_ms: dict) -> dict:
+    """Phase 16 (a)–(d) at mainnet width: six blobs of 4096 from
+    ``random.Random(0)`` (``bench.py:1371-1405``) under
+    ``verification_setup(4096)``, their commitments and proofs made once
+    with the known-τ paths in spawned host workers, which also run the
+    host oracle and the host fold while the card works."""
+    import random
+    from multiprocessing import get_context
+
+    from lighthouse_tpu_torch.beacon_chain import build_blob_sidecars
+    from lighthouse_tpu_torch.kzg import device as KD
+    from lighthouse_tpu_torch.kzg import kzg as K
+    from lighthouse_tpu_torch.kzg.fr import BLS_MODULUS as N
+
+    t0 = time.perf_counter()
+    setup = kzg_setup()
+    rng = random.Random(0)
+    blobs = [K.polynomial_to_blob([rng.randrange(N) for _ in range(KZG_WIDTH)])
+             for _ in range(KZG_BLOBS)]
+    workers = min(KZG_BLOBS + 1, os.cpu_count() or 1)
+    with get_context("spawn").Pool(workers, kzg_worker_init) as pool:
+        made = pool.map(kzg_commit_prove, blobs + [bytes(32 * KZG_WIDTH)])
+        cms, pfs = [m[0] for m in made[:-1]], [m[1] for m in made[:-1]]
+        zs = [K.compute_challenge(b, c, KZG_WIDTH) for b, c in zip(blobs, cms)]
+        print(f"16 set-up: {KZG_BLOBS} blobs of {KZG_WIDTH}, commitments and "
+              f"proofs by the known-τ paths in {workers} host workers in "
+              f"{time.perf_counter() - t0:.1f} s")
+        oracle = pool.map_async(kzg_oracle_eval, list(zip(blobs, zs)))
+        kern = phase_kzg_kernel(torch, hw, KD, setup, blobs, zs, oracle)
+        batches = kzg_batches(blobs, cms, pfs, made[-1])
+        host = pool.map_async(kzg_host_verdict,
+                              [a for a, _ in batches.values()])
+        kernel_ms = {**kernel_ms, "kzg_eval": kern["timing"]["ms"]}
+        ver = phase_kzg_verify(torch, hw, KD, setup, batches, host, kernel_ms)
+    dctx = build_deneb_import(ctx, keys, cms)
+    sidecars = build_blob_sidecars(dctx["block"], blobs, setup, ctx["preset"],
+                                   ctx["T"], proofs=pfs)
+    gate = phase_kzg_gate(torch, hw, setup, dctx["block"], sidecars, pfs)
+    dimp = phase_kzg_import(torch, hw, dctx, sidecars, imp)
+    return {"kernel": kern, "verify": ver, "gate": gate, "import": dimp,
+            "launches_kzg": ver["launches"]}
+
+
+def phase_fork_crossing(torch, hw: dict) -> dict:
+    """16(e): a MINIMAL chain at 64 validators with ``deneb_fork_epoch``
+    1 and real signatures, built by the port's harness on the host oracle,
+    blocks after the fork carrying 1–2 blobs of width 4 (``embedded_
+    setup(4)``) with their sidecars inline; through a port chain on the
+    card (device-resident genesis, every BLS batch and KZG batch on the
+    card) and a port chain on the CPU (fake BLS, host fold): every head
+    and post-state equal."""
+    import random
+    from dataclasses import replace
+
+    from lighthouse_tpu_torch import device
+    from lighthouse_tpu_torch.beacon_chain import build_blob_sidecars
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.kzg import kzg as K
+    from lighthouse_tpu_torch.kzg.fr import BLS_MODULUS as N
+    from lighthouse_tpu_torch.kzg.trusted_setup import embedded_setup
+    from lighthouse_tpu_torch.state_transition import SignatureStrategy
+    from lighthouse_tpu_torch.testing import StateHarness
+    from lighthouse_tpu_torch.types import ChainSpec, ForkName
+    from lighthouse_tpu_torch.types.device_state import materialize_state
+
+    spec = replace(ChainSpec.minimal().with_forks_at_genesis(
+        ForkName.CAPELLA), deneb_fork_epoch=FORK_SMALL_EPOCH)
+    setup = embedded_setup(4)
+    rng = random.Random(SEED + 16)
+    t0 = time.perf_counter()
+    os.environ["LIGHTHOUSE_TPU_DEVICE_STATE"] = "0"
+    try:
+        h = StateHarness(FORK_SMALL_VALIDATORS, spec=spec)
+        genesis = h.state.copy()
+        steps = []
+        for slot in range(1, FORK_SMALL_SLOTS + 1):
+            blobs = []
+            if h.fork_at(slot) >= ForkName.DENEB and slot % 3:
+                blobs = [K.polynomial_to_blob([rng.randrange(N)
+                                               for _ in range(4)])
+                         for _ in range(1 + slot % 2)]
+            cms = [K.blob_to_kzg_commitment(b, setup) for b in blobs]
+            sb = h.build_block(slot, blob_kzg_commitments=cms)
+            h.apply_block(sb, strategy=SignatureStrategy.NO_VERIFICATION)
+            steps.append((slot, sb, build_blob_sidecars(
+                sb, blobs, setup, h.preset, h.T) if blobs else None))
+    finally:
+        os.environ.pop("LIGHTHOUSE_TPU_DEVICE_STATE", None)
+    check(h.fork_at(FORK_SMALL_SLOTS) == ForkName.DENEB
+          and type(h.state).__name__.endswith("Deneb"),
+          "16(e): the harness chain did not cross into Deneb")
+    n_blobs = sum(len(s[2]) for s in steps if s[2])
+    build_s = time.perf_counter() - t0
+
+    def run(chain):
+        out = []
+        for slot, sb, sidecars in steps:
+            chain.per_slot_task(slot)
+            root = chain.process_block(sb, is_timely=True,
+                                       blob_sidecars=sidecars)
+            st = chain.head.state
+            out.append((root, chain.head.root, chain.head.slot,
+                        type(st).__name__, type(st).serialize(st),
+                        len(chain.store.get_blob_sidecars(root))))
+        return out
+
+    prev = (device.default_device(), bls._active)
+    device.set_default_device("cpu")
+    bls.set_backend("fake")
+    try:
+        state = type(genesis).deserialize(type(genesis).serialize(genesis))
+        want = run(genesis_chain(state, h.preset, spec, h.T))
+    finally:
+        device.set_default_device(prev[0])
+        bls._active = prev[1]
+    os.environ["LIGHTHOUSE_TPU_HOST_FASTPATH_MAX"] = "0"
+    try:
+        anchor = genesis.copy()
+        check(materialize_state(anchor), "16(e): materialize refused")
+        chain = genesis_chain(anchor, h.preset, spec, h.T)
+        zero_all_launches()
+        t1 = time.perf_counter()
+        got = run(chain)
+        ms = (time.perf_counter() - t1) * 1e3
+        launched = all_launches()
+    finally:
+        os.environ.pop("LIGHTHOUSE_TPU_HOST_FASTPATH_MAX", None)
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g == w, f"16(e): step {i} (slot {steps[i][0]}, {w[3]}) on the "
+                      f"card != the CPU chain's")
+    check(len(got) == len(want) and got[-1][3].endswith("Deneb")
+          and got[0][3].endswith("Capella"),
+          "16(e): the chains did not cross the fork")
+    check(launched["kzg_eval"] > 0 and launched["miller_fold"] > 0
+          and launched["finalize"] > 0,
+          f"16(e): the card's KZG route did not run: {launched}")
+    print(f"16(e) the fork crossing at {FORK_SMALL_VALIDATORS} validators: "
+          f"{len(steps)} blocks (Capella to slot "
+          f"{spec.deneb_fork_epoch * h.preset.SLOTS_PER_EPOCH - 1}, then "
+          f"Deneb with {n_blobs} blobs of width 4 in their sidecars) built "
+          f"in {build_s:.1f} s; on the card {ms:.0f} ms, every head and "
+          f"post-state equal to the CPU chain's; launches {launched} "
+          f"[{hw['card']}]")
+    return {"ms": ms, "launches": launched}
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--race-child"]:
         race_child(sys.argv[2])
@@ -4095,15 +4862,19 @@ def main() -> None:
     imp, ctx = phase_import_mainnet(torch, hw, all_keys, {
         **{k: t["ms"] for k, t in bk["timing"].items()},
         **{k: t["ms"] for k, t in gk["timing"].items()}})
-    del all_keys
     lap("13(b)")
     phase_fork_choice(torch, hw)
     lap("14")
     phase_produce_minimal(torch, hw)
     production = phase_produce_mainnet(torch, hw, ctx)
-    del ctx
+    kz = phase_kzg(torch, hw, ctx, all_keys, imp, {
+        k: t["ms"] for k, t in bk["timing"].items()})
+    del ctx, all_keys
+    lap("15(a)-(b), 16(a)-(d)")
     phase_pack_baseline(torch, hw)
-    lap("15")
+    lap("15(c)")
+    phase_fork_crossing(torch, hw)
+    lap("16(e)")
     from lighthouse_tpu_torch.common.device_ledger import LEDGER
     print("device ledger: " + json.dumps(LEDGER.snapshot()))
 
@@ -4119,7 +4890,8 @@ def main() -> None:
                 "miller": "lighthouse_tpu/crypto/pairing_kernel.py:781",
                 "product": "lighthouse_tpu/crypto/pairing_kernel.py:843",
                 "sigma_combine":
-                    "lighthouse_tpu/crypto/pairing_kernel.py:1021"}
+                    "lighthouse_tpu/crypto/pairing_kernel.py:1021",
+                "kzg_eval": "lighthouse_tpu/kzg/device.py:81"}
     kernels = []
 
     def launch_keys(info):
@@ -4135,7 +4907,8 @@ def main() -> None:
                "library_ms": None,
                "launches_import": imp["launches_per_import"].get(name, 0),
                "launches_production":
-                   production["launches_production"].get(name, 0)}
+                   production["launches_production"].get(name, 0),
+               "launches_kzg": kz["launches_kzg"].get(name, 0)}
         if "chain_bound_ms" in t:      # a single dependent chain
             out.update({k: t[k] for k in ("chain_bound_ms", "chain_products",
                                           "rate_bound_ms", "binds")})
@@ -4180,6 +4953,9 @@ def main() -> None:
                 chain_bound_ms_block=[t["chain_bound_ms"]
                                       for t in blk["prepare_block"]],
                 **launch_keys(bk["groups"][name]))
+    row("kzg_eval", "kzg_fr.cu", kz["launches_kzg"]["kzg_eval"],
+        kz["kernel"]["err"], kz["kernel"]["timing"])
+    kernels[-1]["shape"] = kz["kernel"]["timing"]["shape"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(hw["card"])
     print(json.dumps({"kernels": kernels}))

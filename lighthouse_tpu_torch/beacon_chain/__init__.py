@@ -1,8 +1,7 @@
 """Chain runtime of the port: the ``BeaconChain`` orchestrator and its
 staged verification pipelines (counterpart of ``beacon_node/beacon_chain``;
-port of ``lighthouse_tpu/beacon_chain``).  Block production, the
-streaming verification service and light-client updates are not ported
-yet."""
+port of ``lighthouse_tpu/beacon_chain``).  The streaming verification
+service and light-client updates are not ported yet."""
 
 from .chain import BeaconChain, CanonicalHead
 from .block_verification import (
@@ -14,7 +13,7 @@ from .attestation_verification import (
     VerifiedAttestation,
     batch_verify_attestations,
 )
-from .data_availability import DataAvailabilityChecker, KzgNotPorted
+from .data_availability import DataAvailabilityChecker, build_blob_sidecars
 from .errors import (
     AttestationError,
     BlobSidecarError,
@@ -44,6 +43,6 @@ __all__ = [
     "IncorrectProposer", "InvalidBlock", "ProposalSignatureInvalid",
     "InvalidSignatures", "StateRootMismatch", "RepeatProposal",
     "BlobsUnavailable", "BlobSidecarError", "DataAvailabilityChecker",
-    "KzgNotPorted", "ObservedAttesters", "ObservedAggregators",
+    "build_blob_sidecars", "ObservedAttesters", "ObservedAggregators",
     "ObservedBlockProducers",
 ]

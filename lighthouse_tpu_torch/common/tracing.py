@@ -313,12 +313,18 @@ def _src_op_pool() -> dict:
     return LAST_PACK_STATS
 
 
+def _src_kzg() -> dict:
+    from ..kzg.device import LAST_KZG_TIMINGS
+    return LAST_KZG_TIMINGS
+
+
 _STAGE_SOURCES: Dict[str, Callable[[], dict]] = {
     "block": _src_block,
     "epoch": _src_epoch,
     "block_sigs": _src_block_sigs,
     "replay": _src_replay,
     "op_pool": _src_op_pool,
+    "kzg": _src_kzg,
 }
 
 

@@ -41,7 +41,7 @@ _LOADED: dict[str, tuple] = {}
 
 # The ledger subsystem each library's builds are charged to.
 _SUBSYSTEM = {"sha256_merkle": "device_tree", "bls381": "bls",
-              "bls381_phases": "bls"}
+              "bls381_phases": "bls", "kzg_fr": "kzg"}
 
 
 def _nvcc() -> str:

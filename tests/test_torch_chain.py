@@ -396,12 +396,13 @@ def test_persist_resume_over_sqlite_in_both_packages(script, tmp_path):
 
 
 def test_blob_commitments_need_the_kzg_port():
-    """A block with blob commitments is never treated as available: the
-    gate raises ``KzgNotPorted``; a block without commitments passes, and
-    so does an empty sidecar batch."""
+    """The availability gate with the KZG port: an empty sidecar batch and
+    a block without commitments pass; a block with commitments and no
+    verified sidecars raises ``BlobsUnavailable`` and lists every index as
+    missing."""
     from types import SimpleNamespace
-    from lighthouse_tpu_torch.beacon_chain import (DataAvailabilityChecker,
-                                                   KzgNotPorted)
+    from lighthouse_tpu_torch.beacon_chain import (BlobsUnavailable,
+                                                   DataAvailabilityChecker)
     from lighthouse_tpu_torch.types import MINIMAL
     da = DataAvailabilityChecker(MINIMAL, None)
 
@@ -411,10 +412,10 @@ def test_blob_commitments_need_the_kzg_port():
 
     da.check_availability(block([]), b"\x01" * 32)
     da.put_sidecars([])
-    with pytest.raises(KzgNotPorted, match="KZG"):
-        da.check_availability(block([b"\xc0" * 48]), b"\x02" * 32)
-    with pytest.raises(KzgNotPorted):
-        da.put_sidecars([object()])
+    with pytest.raises(BlobsUnavailable, match="missing verified blobs"):
+        da.check_availability(block([b"\xc0" * 48] * 2), b"\x02" * 32)
+    assert da.missing_indices(block([b"\xc0" * 48] * 2),
+                              b"\x02" * 32) == [0, 1]
 
 
 def test_op_pool_packs_like_the_reference(reference_run, port_run):

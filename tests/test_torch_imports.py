@@ -70,6 +70,9 @@ _DEVICE_CALLS = [
     "np.zeros(4, np.uint64))",
     "device_pack.greedy_pack_device(np.array([1]), np.array([32]), "
     "np.array([0, 1]), 64, 4)",
+    "kzg_device.eval_blobs([bytes(128)], [0], kzg_ts.embedded_setup(4))",
+    "kzg_kzg.verify_blob_kzg_proof_batch([bytes(128)], [b'\\xc0' + "
+    "bytes(47)], [b'\\xc0' + bytes(47)], kzg_ts.embedded_setup(4))",
 ]
 
 
@@ -87,6 +90,8 @@ def device_call_outcomes() -> dict:
         "from lighthouse_tpu_torch.parallel import pipeline\n"
         "from lighthouse_tpu_torch.fork_choice import device_proto_array\n"
         "from lighthouse_tpu_torch.op_pool import device_pack\n"
+        "from lighthouse_tpu_torch.kzg import device as kzg_device, "
+        "kzg as kzg_kzg, trusted_setup as kzg_ts\n"
         "assert device.default_device().type == 'cuda'\n"
         f"for call in {_DEVICE_CALLS!r}:\n"
         "    try:\n"
@@ -106,7 +111,8 @@ def test_default_device_is_cuda_and_raises_without_gpu(call,
 
 # The modules the native library, device ledger, chunk stager and proof
 # engine slice added, then those of the block-import slice, then those of
-# the beacon-chain slice, then those of the block-production slice.
+# the beacon-chain slice, then those of the block-production slice, then
+# those of the data-availability slice.
 _NEW_MODULES = [
     "lighthouse_tpu_torch.crypto.native",
     "lighthouse_tpu_torch.common.device_ledger",
@@ -166,6 +172,13 @@ _NEW_MODULES = [
     "lighthouse_tpu_torch.validator_client.store",
     "lighthouse_tpu_torch.validator_client.beacon_node",
     "lighthouse_tpu_torch.validator_client.services",
+    "lighthouse_tpu_torch.kzg",
+    "lighthouse_tpu_torch.kzg.fr",
+    "lighthouse_tpu_torch.kzg.fr_limb",
+    "lighthouse_tpu_torch.kzg.trusted_setup",
+    "lighthouse_tpu_torch.kzg.kzg",
+    "lighthouse_tpu_torch.kzg.inclusion",
+    "lighthouse_tpu_torch.kzg.device",
 ]
 
 

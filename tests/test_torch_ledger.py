@@ -319,7 +319,7 @@ def test_knob_defaults_and_site_defaults(monkeypatch):
 def test_warmup_skips_on_the_cpu_and_raises_without_a_gpu(monkeypatch):
     assert compile_cache.warmup() == {"skipped": "cpu", "compiled": []}
     assert compile_cache.library_names() == ["bls381", "bls381_phases",
-                                             "sha256_merkle"]
+                                             "kzg_fr", "sha256_merkle"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     device.set_default_device("cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
